@@ -1,0 +1,177 @@
+"""The multimodal VAE's serving surface: encode, subset posteriors and the
+joint, generation and conditional generation.
+
+Port of ``mopoe_mimic_tpu/models/mmvae.py`` (reference BaseMMVae.py and
+VAEtrimodalMimic.py). Semantics kept from the JAX module:
+
+  * subsets in powerset order, PoE over each under ``joint_elbo`` / ``poe``
+    (``poe`` adds a N(0, I) expert), deterministic mixture selection under
+    ``moe`` / ``jsd``;
+  * passing subsets: moe/jsd → singletons, poe → the full set,
+    joint_elbo → all; jsd appends a N(0, I) component; the joint takes row
+    b from a component fixed by the batch size;
+  * image decoders emit the Laplace mean, the text decoder log-softmax,
+    turned into probabilities by ``generate_from_latents``.
+
+The subset PoE goes through the hand-written CUDA kernel when
+``cfg.use_pallas_fusion`` is set and the posteriors are on a CUDA device,
+and through the plain PyTorch version otherwise (mmvae.py:184-193 of the
+JAX package). The posteriors are cast to float32 before fusion. Training
+(``joint_divergence``, ``__call__``) is not ported yet, nor are
+factorized (style) representations or the char text encoding.
+
+Layouts are PyTorch's: images NCHW, text ids [B, L], text output
+[B, L, vocab]. The session converts at its boundary.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from mopoe_mimic_tpu_torch.config import Method, MopoeConfig
+from mopoe_mimic_tpu_torch.models.img_networks import DecoderImg, EncoderImg
+from mopoe_mimic_tpu_torch.models.text_networks import DecoderText, EncoderText
+from mopoe_mimic_tpu_torch.ops import fusion as F
+from mopoe_mimic_tpu_torch.ops.cuda_fusion import poe_subsets_cuda
+from mopoe_mimic_tpu_torch.ops.sampling import reparameterize
+
+# modality → the reference's attribute suffix (encoder_pa, decoder_lat, ...)
+MODULE_SUFFIX = {"PA": "pa", "Lateral": "lat", "text": "text"}
+
+Posterior = Tuple[torch.Tensor, torch.Tensor]
+
+
+class MMVae(nn.Module):
+    """Trimodal (or text-only) multimodal VAE, inference and generation."""
+
+    def __init__(self, cfg: MopoeConfig):
+        super().__init__()
+        if cfg.factorized_representation and any(cfg.style_dims.values()):
+            raise NotImplementedError("factorized (style) representations are not ported yet")
+        if cfg.text_encoding != "word":
+            raise NotImplementedError("only word text encoding is ported")
+        if cfg.feature_extractor_img != "resnet":
+            raise NotImplementedError("only the resnet image feature extractor is ported")
+        self.cfg = cfg
+        for m in cfg.modality_names:
+            suffix = MODULE_SUFFIX[m]
+            if m == "text":
+                enc = EncoderText(cfg.DIM_text, cfg.class_dim, cfg.vocab_size,
+                                  cfg.len_sequence, cfg.bn_eps)
+                dec = DecoderText(cfg.DIM_text, cfg.class_dim, cfg.num_features,
+                                  cfg.len_sequence, cfg.text_gen_lastlayer, cfg.bn_eps)
+            else:
+                enc = EncoderImg(cfg.DIM_img, cfg.class_dim, cfg.img_size,
+                                 cfg.image_channels, cfg.bn_eps)
+                dec = DecoderImg(cfg.DIM_img, cfg.class_dim, cfg.img_size,
+                                 cfg.image_channels, cfg.bn_eps)
+            setattr(self, f"encoder_{suffix}", enc)
+            setattr(self, f"decoder_{suffix}", dec)
+
+    def encoder(self, modality: str) -> nn.Module:
+        return getattr(self, f"encoder_{MODULE_SUFFIX[modality]}")
+
+    def decoder(self, modality: str) -> nn.Module:
+        return getattr(self, f"decoder_{MODULE_SUFFIX[modality]}")
+
+    # ------------------------------------------------------------------
+
+    def encode(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, Posterior]:
+        """Per-modality posteriors, float32, for the modalities in ``batch``."""
+        content: Dict[str, Posterior] = {}
+        for m in self.cfg.modality_names:
+            if m in batch:
+                mu, lv = self.encoder(m)(batch[m])
+                content[m] = (mu.float(), lv.float())
+        return content
+
+    def inference(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+        """Subset posteriors and the joint mixture (mmvae.py:167-244)."""
+        cfg = self.cfg
+        method = cfg.method_enum
+        present = tuple(m for m in cfg.modality_names if m in batch)
+        content = self.encode(batch)
+        mus = torch.stack([content[m][0] for m in present])      # [M, B, D]
+        logvars = torch.stack([content[m][1] for m in present])  # [M, B, D]
+        subsets = F.subset_powerset(present)
+
+        if method.uses_poe_fusion:
+            mask = F.subset_mask_matrix(present)
+            prior = method is Method.POE
+            if cfg.use_pallas_fusion and mus.is_cuda:
+                s_mu, s_lv = poe_subsets_cuda(mus, logvars, mask, prior_expert=prior)
+            else:
+                s_mu, s_lv = F.poe_subsets(mus, logvars, mask, prior_expert=prior)
+        else:  # moe / jsd: deterministic mixture within each subset
+            per_subset = []
+            for members in subsets.values():
+                idx = list(members)
+                if len(idx) == 1:
+                    per_subset.append((mus[idx[0]], logvars[idx[0]]))
+                else:
+                    per_subset.append(F.mixture_component_selection(
+                        mus[idx], logvars[idx], [1.0 / len(idx)] * len(idx)))
+            s_mu = torch.stack([p[0] for p in per_subset])
+            s_lv = torch.stack([p[1] for p in per_subset])
+
+        distr_subsets = {key: (s_mu[i], s_lv[i]) for i, key in enumerate(subsets)}
+
+        if method in (Method.MOE, Method.JSD):
+            passing = [i for i, ms in enumerate(subsets.values()) if len(ms) == 1]
+        elif method is Method.POE:
+            passing = [i for i, ms in enumerate(subsets.values()) if len(ms) == len(present)]
+        else:  # joint_elbo (MoPoE)
+            passing = list(range(len(subsets)))
+        j_mus, j_lvs = s_mu[passing], s_lv[passing]
+        if method is Method.JSD:
+            zeros = torch.zeros_like(j_mus[:1])
+            j_mus = torch.cat([j_mus, zeros])
+            j_lvs = torch.cat([j_lvs, zeros])
+        k = j_mus.shape[0]
+        joint = F.mixture_component_selection(j_mus, j_lvs, [1.0 / k] * k)
+        return {
+            "modalities": content,
+            "subsets": distr_subsets,
+            "mus": j_mus,
+            "logvars": j_lvs,
+            "weights": torch.full((k,), 1.0 / k, device=j_mus.device),
+            "joint": joint,
+        }
+
+    # ------------------------------------------------------------------
+
+    def generate(self, num_samples: int,
+                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Decode ``num_samples`` draws from the N(0, I) prior; ``generator``
+        lives on the model's device."""
+        device = next(self.parameters()).device
+        z = torch.randn((num_samples, self.cfg.class_dim), generator=generator, device=device)
+        return self.generate_from_latents(z)
+
+    def generate_from_latents(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Every modality's likelihood mean for content latent ``z``: images
+        as decoded, text as softmax probabilities (exp of log-softmax)."""
+        out: Dict[str, torch.Tensor] = {}
+        for m in self.cfg.modality_names:
+            y = self.decoder(m)(z)
+            out[m] = torch.exp(y) if m == "text" else y
+        return out
+
+    def cond_generation(
+        self,
+        latent_distributions: Mapping[str, Posterior],
+        generator: Optional[torch.Generator] = None,
+        eps: Optional[Union[torch.Tensor, float]] = None,
+    ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Generate from each subset posterior: z = mu + eps·std, with eps
+        drawn from ``generator`` per subset in order, or the injected
+        ``eps`` (``eps=0`` decodes the posterior means)."""
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for key, (mu, lv) in latent_distributions.items():
+            z = reparameterize(mu, lv, generator=generator, eps=eps)
+            out[key] = self.generate_from_latents(z)
+        return out
+

@@ -1,0 +1,111 @@
+"""Pre-activation residual conv blocks, 1-D and 2-D, conv and transpose.
+
+Port of ``mopoe_mimic_tpu/models/resblocks.py`` with PyTorch's native
+layers, which are what the JAX package's ``TorchBatchNorm`` and
+``TorchConvTranspose`` emulate. Each block is
+BN → ReLU → 1×1 conv → dropout → BN → ReLU → k×k (transpose) conv →
+dropout, combined as ``a · shortcut(x) + b · out`` where the shortcut is a
+(transpose) conv with bias followed by BN (resblocks.py:320-350 and
+:359-393). Attribute names are the reference's, so the keys read
+``bn1``, ``conv1``, ``bn2``, ``conv2`` and ``downsample.{0,1}`` /
+``upsample.{0,1}``.
+
+BatchNorm runs in float32 whatever the autocast dtype (the JAX package's
+``bn_compute_dtype="float32"``): its input is cast up, and autocast then
+lowers only the convolutions.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+A_SKIP, B_SKIP = 2.0, 0.3
+
+
+class _ResidualBlock(nn.Module):
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int = 4,
+        stride: int = 2,
+        padding: int = 1,
+        output_padding: int = 0,
+        *,
+        spatial: int,
+        transpose: bool,
+        conv_bias: bool,
+        a: float = A_SKIP,
+        b: float = B_SKIP,
+        dropout: float = 0.5,
+        bn_eps: float = 1e-5,
+    ):
+        super().__init__()
+        bn = nn.BatchNorm2d if spatial == 2 else nn.BatchNorm1d
+        if transpose:
+            conv = nn.ConvTranspose2d if spatial == 2 else nn.ConvTranspose1d
+            extra = {"output_padding": output_padding}
+        else:
+            conv = nn.Conv2d if spatial == 2 else nn.Conv1d
+            extra = {}
+        # torch Dropout2d zeroes whole feature maps (the 2-D reference
+        # blocks); the 1-D blocks use elementwise dropout
+        drop = nn.Dropout2d if spatial == 2 else nn.Dropout
+        self.a, self.b = a, b
+        self.bn1 = bn(in_channels, eps=bn_eps)
+        self.conv1 = conv(in_channels, in_channels, 1, 1, 0, bias=conv_bias)
+        self.dropout1 = drop(dropout)
+        self.bn2 = bn(in_channels, eps=bn_eps)
+        self.conv2 = conv(in_channels, out_channels, kernel_size, stride, padding,
+                          bias=conv_bias, **extra)
+        self.dropout2 = drop(dropout)
+        shortcut = nn.Sequential(
+            conv(in_channels, out_channels, kernel_size, stride, padding, bias=True, **extra),
+            bn(out_channels, eps=bn_eps),
+        )
+        self._shortcut_name = "upsample" if transpose else "downsample"
+        setattr(self, self._shortcut_name, shortcut)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(torch.relu(self.bn1(x.float())))
+        h = self.dropout1(h)
+        h = self.conv2(torch.relu(self.bn2(h.float())))
+        h = self.dropout2(h)
+        conv, bn = getattr(self, self._shortcut_name)
+        residual = bn(conv(x).float())
+        return self.a * residual + self.b * h
+
+
+class ResidualBlock2dConv(_ResidualBlock):
+    def __init__(self, in_channels, out_channels, kernel_size=4, stride=2, padding=1, *,
+                 conv_bias=False, **kw):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding,
+                         spatial=2, transpose=False, conv_bias=conv_bias, **kw)
+
+
+class ResidualBlock2dTransposeConv(_ResidualBlock):
+    def __init__(self, in_channels, out_channels, kernel_size=4, stride=2, padding=1,
+                 output_padding=0, *, conv_bias=False, **kw):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding,
+                         output_padding, spatial=2, transpose=True, conv_bias=conv_bias, **kw)
+
+
+class ResidualBlock1dConv(_ResidualBlock):
+    def __init__(self, in_channels, out_channels, kernel_size=4, stride=2, padding=1, *,
+                 conv_bias=True, **kw):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding,
+                         spatial=1, transpose=False, conv_bias=conv_bias, **kw)
+
+
+class ResidualBlock1dTransposeConv(_ResidualBlock):
+    def __init__(self, in_channels, out_channels, kernel_size=4, stride=2, padding=1,
+                 output_padding=0, *, conv_bias=True, **kw):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding,
+                         output_padding, spatial=1, transpose=True, conv_bias=conv_bias, **kw)
+
+
+def block(module: nn.Module) -> nn.Sequential:
+    """Wrap a block at index 0, as the reference's factories do
+    (keys ``resblock_K.0.*``)."""
+    return nn.Sequential(module)

@@ -1,0 +1,128 @@
+"""Multimodal posterior fusion: PoE and the MoPoE subset machinery.
+
+Port of ``mopoe_mimic_tpu/ops/fusion.py``. Subset membership is a constant
+``[S, M]`` 0/1 mask over the stacked ``[M, B, D]`` unimodal posteriors,
+and every subset's product of experts is a statically unrolled masked
+precision sum. ``poe_subsets`` here is the plain PyTorch version of the
+subset-PoE kernel (``ops/cuda_fusion.py``): the path on the CPU and the
+kernel's oracle on the GPU. Summation order matches the JAX function and
+the Pallas kernel: prior first, then members in ascending index order.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+EPS = 1e-8
+
+
+def subset_powerset(mod_names: Sequence[str]) -> Dict[str, Tuple[int, ...]]:
+    """Non-empty subsets of ``mod_names`` in the reference's dict order:
+    by size, keys the sorted member names joined by '_', values the member
+    indices into ``mod_names`` (fusion.py:38-55 of the JAX package)."""
+    names = list(mod_names)
+    out: Dict[str, Tuple[int, ...]] = {}
+    combos = itertools.chain.from_iterable(
+        itertools.combinations(names, n) for n in range(1, len(names) + 1)
+    )
+    for combo in combos:
+        key = "_".join(sorted(combo))
+        out[key] = tuple(names.index(m) for m in sorted(combo))
+    return out
+
+
+def subset_mask_matrix(mod_names: Sequence[str]) -> np.ndarray:
+    """Constant [n_subsets, n_modalities] 0/1 membership mask, rows in
+    ``subset_powerset`` order."""
+    subsets = subset_powerset(mod_names)
+    mask = np.zeros((len(subsets), len(mod_names)), dtype=np.float32)
+    for row, members in enumerate(subsets.values()):
+        mask[row, list(members)] = 1.0
+    return mask
+
+
+def subset_members(subset_mask: np.ndarray) -> List[Tuple[int, ...]]:
+    """Member indices of each mask row, ascending."""
+    mask = np.asarray(subset_mask) > 0.5
+    return [tuple(int(m) for m in np.nonzero(row)[0]) for row in mask]
+
+
+def prior_precision(prior_expert: bool, eps: float = EPS) -> float:
+    """Precision of the N(0, I) expert, 1/(exp(0) + eps), or 0 without it."""
+    return 1.0 / (1.0 + eps) if prior_expert else 0.0
+
+
+def poe(mus: torch.Tensor, logvars: torch.Tensor, eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Precision-weighted Gaussian product over the leading (expert) axis."""
+    t = 1.0 / (torch.exp(logvars) + eps)
+    t_sum = t.sum(dim=0)
+    pd_mu = (mus * t).sum(dim=0) / t_sum
+    pd_var = 1.0 / t_sum
+    return pd_mu, torch.log(pd_var)
+
+
+def poe_subsets(
+    mus: torch.Tensor,
+    logvars: torch.Tensor,
+    subset_mask: np.ndarray,
+    prior_expert: bool = False,
+    eps: float = EPS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All subset PoE products at once.
+
+    mus, logvars: [M, B, D] stacked unimodal posteriors; subset_mask:
+    [S, M] constant 0/1. ``prior_expert`` adds a N(0, I) expert to every
+    product (method 'poe'). Returns mu, logvar of shape [S, B, D].
+    """
+    t = 1.0 / (torch.exp(logvars) + eps)
+    mu_t = mus * t
+    prior_t = prior_precision(prior_expert, eps)
+    t_rows, mu_rows = [], []
+    for members in subset_members(subset_mask):
+        t_sum = prior_t
+        mu_t_sum = 0.0
+        for m in members:
+            t_sum = t_sum + t[m]
+            mu_t_sum = mu_t_sum + mu_t[m]
+        t_rows.append(t_sum)
+        mu_rows.append(mu_t_sum)
+    pd_var = 1.0 / torch.stack(t_rows)
+    pd_mu = torch.stack(mu_rows) * pd_var
+    return pd_mu, torch.log(pd_var)
+
+
+def _partition_bounds(batch: int, weights: Sequence[float]) -> List[Tuple[int, int]]:
+    """Component k owns batch rows [start_k, end_k) with end_k - start_k =
+    floor(batch * w_k); the last component absorbs the remainder
+    (mimic/utils/utils.py:55-77 of the reference)."""
+    bounds: List[Tuple[int, int]] = []
+    start = 0
+    n = len(weights)
+    for k, w in enumerate(weights):
+        end = batch if k == n - 1 else start + int(math.floor(batch * float(w)))
+        bounds.append((start, end))
+        start = end
+    return bounds
+
+
+def mixture_component_selection(
+    mus: torch.Tensor,
+    logvars: torch.Tensor,
+    weights: Sequence[float],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic MoE 'sampling': row b of the [K, B, D] inputs comes
+    from component c(b), a static stratified partition of the batch axis
+    proportional to ``weights``. The partition depends on B, so a padded
+    batch selects differently from the unpadded one."""
+    batch = mus.shape[1]
+    comp = np.zeros((batch,), dtype=np.int64)
+    for k, (s, e) in enumerate(_partition_bounds(batch, weights)):
+        comp[s:e] = k
+    comp_t = torch.from_numpy(comp).to(mus.device)
+    rows = torch.arange(batch, device=mus.device)
+    return mus[comp_t, rows], logvars[comp_t, rows]
