@@ -8,11 +8,16 @@ against. This package imports ``torch`` and numpy only: it never imports
 
 Layout mirrors the JAX package:
 
-  * ``ops/``     fusion (plain PyTorch), the hand-written CUDA subset-PoE
-                 kernel (``ops/cuda_fusion.py`` + ``csrc/poe_subsets.cu``),
-                 sampling
+  * ``ops/``     fusion, KL divergences, log-probabilities, sampling and
+                 the fused text head (plain PyTorch), and the hand-written
+                 CUDA kernels beside them: the subset PoE forward and
+                 backward (``ops/cuda_fusion.py`` + ``csrc/poe_subsets.cu``)
+                 and the fused text head (``ops/cuda_texthead.py`` +
+                 ``csrc/texthead.cu``)
   * ``models/``  residual blocks, image and word-text networks, MMVae, and
                  the JAX → PyTorch weight converter
+  * ``train/``   the objective, the train state and optimizer, the train
+                 and eval steps
   * ``serve.py`` the inference session and its CLI
 
 Module names use the reference's ``state_dict`` keys

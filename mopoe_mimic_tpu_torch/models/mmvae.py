@@ -1,5 +1,6 @@
-"""The multimodal VAE's serving surface: encode, subset posteriors and the
-joint, generation and conditional generation.
+"""The multimodal VAE: encode, subset posteriors and the joint, the joint
+divergence and the training forward, generation and conditional
+generation.
 
 Port of ``mopoe_mimic_tpu/models/mmvae.py`` (reference BaseMMVae.py and
 VAEtrimodalMimic.py). Semantics kept from the JAX module:
@@ -13,12 +14,12 @@ VAEtrimodalMimic.py). Semantics kept from the JAX module:
   * image decoders emit the Laplace mean, the text decoder log-softmax,
     turned into probabilities by ``generate_from_latents``.
 
-The subset PoE goes through the hand-written CUDA kernel when
-``cfg.use_pallas_fusion`` is set and the posteriors are on a CUDA device,
-and through the plain PyTorch version otherwise (mmvae.py:184-193 of the
-JAX package). The posteriors are cast to float32 before fusion. Training
-(``joint_divergence``, ``__call__``) is not ported yet, nor are
-factorized (style) representations or the char text encoding.
+The subset PoE goes through the hand-written CUDA kernels (forward and
+backward) when ``cfg.use_pallas_fusion`` is set and the posteriors are on
+a CUDA device, and through the plain PyTorch version otherwise
+(mmvae.py:184-193 of the JAX package). The posteriors are cast to float32
+before fusion. Factorized (style) representations and the char text
+encoding are not ported yet.
 
 Layouts are PyTorch's: images NCHW, text ids [B, L], text output
 [B, L, vocab]. The session converts at its boundary.
@@ -33,8 +34,10 @@ from torch import nn
 
 from mopoe_mimic_tpu_torch.config import Method, MopoeConfig
 from mopoe_mimic_tpu_torch.models.img_networks import DecoderImg, EncoderImg
+from mopoe_mimic_tpu_torch.models.resblocks import at_least_f32
 from mopoe_mimic_tpu_torch.models.text_networks import DecoderText, EncoderText
 from mopoe_mimic_tpu_torch.ops import fusion as F
+from mopoe_mimic_tpu_torch.ops import kl as KL
 from mopoe_mimic_tpu_torch.ops.cuda_fusion import poe_subsets_cuda
 from mopoe_mimic_tpu_torch.ops.sampling import reparameterize
 
@@ -80,12 +83,13 @@ class MMVae(nn.Module):
     # ------------------------------------------------------------------
 
     def encode(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, Posterior]:
-        """Per-modality posteriors, float32, for the modalities in ``batch``."""
+        """Per-modality posteriors, float32 (float64 in a float64 model),
+        for the modalities in ``batch``."""
         content: Dict[str, Posterior] = {}
         for m in self.cfg.modality_names:
             if m in batch:
                 mu, lv = self.encoder(m)(batch[m])
-                content[m] = (mu.float(), lv.float())
+                content[m] = (at_least_f32(mu), at_least_f32(lv))
         return content
 
     def inference(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -140,6 +144,45 @@ class MMVae(nn.Module):
             "weights": torch.full((k,), 1.0 / k, device=j_mus.device),
             "joint": joint,
         }
+
+    def joint_divergence(self, mus: torch.Tensor, logvars: torch.Tensor,
+                         weights: torch.Tensor) -> Dict[str, Any]:
+        """The joint divergence (mmvae.py:250-260): against the alpha-PoE
+        dynamic prior under ``jsd``, against N(0, I) otherwise; normalised
+        by the configured batch size."""
+        cfg = self.cfg
+        if cfg.method_enum.uses_dynamic_prior:
+            div, klds, dyn_prior = KL.alpha_jsd_divergence(
+                mus, logvars, weights, normalization=cfg.batch_size)
+            return {"joint_divergence": div, "individual_divs": klds, "dyn_prior": dyn_prior}
+        div, klds = KL.group_divergence_moe(mus, logvars, weights, normalization=cfg.batch_size)
+        return {"joint_divergence": div, "individual_divs": klds, "dyn_prior": None}
+
+    def forward(
+        self,
+        batch: Mapping[str, torch.Tensor],
+        text_prehead: bool = False,
+        generator: Optional[torch.Generator] = None,
+        eps: Optional[Union[torch.Tensor, float]] = None,
+    ) -> Dict[str, Any]:
+        """The training forward (mmvae.py:266-304): posteriors, the joint
+        divergence, z from the joint (noise from ``generator`` or the
+        injected ``eps``) and the reconstruction of each modality in
+        ``batch``. ``text_prehead=True`` makes the text decoder return its
+        pre-head features [B, L, C] for the fused head."""
+        latents = self.inference(batch)
+        div = self.joint_divergence(latents["mus"], latents["logvars"], latents["weights"])
+        joint_mu, joint_lv = latents["joint"]
+        z = reparameterize(joint_mu, joint_lv, generator=generator, eps=eps)
+        rec: Dict[str, torch.Tensor] = {}
+        for m in self.cfg.modality_names:
+            if m not in batch:
+                continue
+            if m == "text" and text_prehead:
+                rec[m] = self.decoder(m)(z, prehead=True)
+            else:
+                rec[m] = self.decoder(m)(z)
+        return {"latents": latents, "group_distr": latents["joint"], "rec": rec, **div}
 
     # ------------------------------------------------------------------
 

@@ -11,7 +11,8 @@ dropout, combined as ``a · shortcut(x) + b · out`` where the shortcut is a
 ``upsample.{0,1}``.
 
 BatchNorm runs in float32 whatever the autocast dtype (the JAX package's
-``bn_compute_dtype="float32"``): its input is cast up, and autocast then
+``bn_compute_dtype="float32"``): its input is cast up (``at_least_f32``:
+a float64 model, the port's oracle runs, stays float64), and autocast then
 lowers only the convolutions.
 """
 
@@ -21,6 +22,11 @@ import torch
 from torch import nn
 
 A_SKIP, B_SKIP = 2.0, 0.3
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or left in float64."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 class _ResidualBlock(nn.Module):
@@ -68,12 +74,12 @@ class _ResidualBlock(nn.Module):
         setattr(self, self._shortcut_name, shortcut)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(torch.relu(self.bn1(x.float())))
+        h = self.conv1(torch.relu(self.bn1(at_least_f32(x))))
         h = self.dropout1(h)
-        h = self.conv2(torch.relu(self.bn2(h.float())))
+        h = self.conv2(torch.relu(self.bn2(at_least_f32(h))))
         h = self.dropout2(h)
         conv, bn = getattr(self, self._shortcut_name)
-        residual = bn(conv(x).float())
+        residual = bn(at_least_f32(conv(x)))
         return self.a * residual + self.b * h
 
 

@@ -3,7 +3,9 @@
 Port of the word path of ``mopoe_mimic_tpu/models/text_networks.py``
 (reference word_encoding/mmvae_text_enc.py, word_encoding/DataGeneratorText.py).
 1-D blocks keep their conv bias; the stem ``conv1`` has one. The decoder
-ends in a plain ``Conv1d(k1)`` to the vocabulary, not a transposed conv.
+ends in a plain ``Conv1d(k1)`` to the vocabulary, not a transposed conv;
+``prehead=True`` stops before it (text_networks.py:162-211 of the JAX
+package).
 The char-1024 path is not ported yet.
 """
 
@@ -18,6 +20,7 @@ from mopoe_mimic_tpu_torch.models.compressor import LinearFeatureCompressor
 from mopoe_mimic_tpu_torch.models.resblocks import (
     ResidualBlock1dConv,
     ResidualBlock1dTransposeConv,
+    at_least_f32,
     block,
 )
 
@@ -78,10 +81,15 @@ class DataGeneratorTextWord(nn.Module):
         layers.append(nn.Conv1d(d, vocab_size, 1, 1, 0, bias=True))
         self.generator = nn.Sequential(*layers)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, prehead: bool = False) -> torch.Tensor:
+        """``prehead=True`` returns the features before the vocab head
+        ``generator[6]`` as [B, L, C], for the fused head + log-prob
+        (``ops/texthead.py``); the parameters are the same in both modes."""
+        if prehead:
+            return self.generator[:-1](feats).transpose(1, 2)  # [B, C, L] → [B, L, C]
         h = self.generator(feats).transpose(1, 2)  # [B, V, L] → [B, L, V]
         if self.last_layer == "softmax":
-            return torch.log_softmax(h.float(), dim=-1)
+            return torch.log_softmax(at_least_f32(h), dim=-1)
         if self.last_layer == "sigmoid":
             return torch.sigmoid(h)
         return h
@@ -111,6 +119,6 @@ class DecoderText(nn.Module):
         self.text_generator = DataGeneratorTextWord(dim, vocab_size, len_sequence,
                                                     last_layer, bn_eps)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, prehead: bool = False) -> torch.Tensor:
         feats = self.feature_generator(z)
-        return self.text_generator(feats.reshape(feats.shape[0], -1, 1))
+        return self.text_generator(feats.reshape(feats.shape[0], -1, 1), prehead=prehead)

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library
-with a plain C interface (no PyTorch headers: seconds to build, where
+All ``csrc/*.cu`` sources compile with ``nvcc``, one process per source,
+all started at once, and link into one shared library with a plain C
+interface (no PyTorch headers: seconds to build, where
 ``torch.utils.cpp_extension.load`` takes minutes). The library goes to
 ``build/kernels/`` beside the package, keyed by a hash of the sources and
 flags, so an edited kernel never loads a stale binary. A failed build
@@ -23,7 +24,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 MAX_EXPERTS = 8
@@ -67,21 +68,38 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmopoe_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (command, process); raise with nvcc's output on failure."""
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless the library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    try:
+        _run([_start([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+              for src, obj in zip(_sources(), objects)])
+        _run([_start([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)])])
+        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    finally:
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
     return out
 
 
@@ -89,11 +107,21 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's signature."""
     lib = ctypes.CDLL(str(build()))
-    fn = lib.poe_subsets_f32
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        SubsetMasks, ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    signatures = {
+        # mus, lvs, mu_out, lv_out, M, B, D, masks, prior_t, stream
+        "poe_subsets_f32": [ptr] * 4 + [i32] * 3 + [SubsetMasks, ctypes.c_float, ptr],
+        # mus, lvs, dmu_s, dlv_s, dmu, dlv, M, B, D, masks, prior_t, stream
+        "poe_subsets_bwd_f32": [ptr] * 6 + [i32] * 3 + [SubsetMasks, ctypes.c_float, ptr],
+        # h, W, b, targets, lp, lse, R, C, V, dtype, stream
+        "texthead_fwd": [ptr] * 6 + [i32] * 4 + [ptr],
+        # h, W, b, targets, lse, g, dh, R, C, V, dtype, stream
+        "texthead_bwd_dh": [ptr] * 7 + [i32] * 4 + [ptr],
+        # h, W, b, targets, lse, g, dW, db, R, C, V, dtype, stream
+        "texthead_bwd_dw": [ptr] * 8 + [i32] * 4 + [ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

@@ -1,10 +1,12 @@
-"""K1: the all-subsets product of experts as a hand-written CUDA kernel.
+"""K1: the all-subsets product of experts as hand-written CUDA kernels.
 
 Replaces the Pallas TPU kernel ``_fusion_kernel``
-(mopoe_mimic_tpu/ops/pallas_fusion.py:42) on the serving path; the
-kernel is ``csrc/poe_subsets.cu``, its plain PyTorch version is
-``ops/fusion.poe_subsets``. Forward only: the wrapper refuses inputs that
-require grad, since the backward kernel comes with the training port.
+(mopoe_mimic_tpu/ops/pallas_fusion.py:42) and the XLA VJP that serves as
+its gradient (pallas_fusion.py:86-92). The kernels are
+``csrc/poe_subsets.cu``: ``poe_subsets_f32`` (forward) and
+``poe_subsets_bwd_f32`` (backward), joined by a ``torch.autograd.Function``.
+Their plain PyTorch versions are ``ops/fusion.poe_subsets`` and
+``ops/fusion.poe_subsets_bwd``.
 """
 
 from __future__ import annotations
@@ -17,9 +19,9 @@ import torch
 from mopoe_mimic_tpu_torch.ops import _build
 from mopoe_mimic_tpu_torch.ops.fusion import prior_precision, subset_members
 
-# Launches of the kernel since the last reset; read by chip_smoke.py to show
-# that the main path went through the kernel.
-LAUNCHES = 0
+# Launches of each kernel since the last reset; read by chip_smoke.py to
+# show that the main path went through the kernels.
+LAUNCHES = {"poe_subsets_f32": 0, "poe_subsets_bwd_f32": 0}
 
 
 def _masks(subset_mask: np.ndarray, n_experts: int) -> _build.SubsetMasks:
@@ -36,43 +38,79 @@ def _masks(subset_mask: np.ndarray, n_experts: int) -> _build.SubsetMasks:
     return masks
 
 
+def _check(name: str, x: torch.Tensor) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"poe_subsets_cuda: {name} is on {x.device}, not a CUDA device")
+    if x.dtype != torch.float32:
+        raise TypeError(f"poe_subsets_cuda: {name} is {x.dtype}; the kernel takes float32")
+    if not x.is_contiguous():
+        raise ValueError(f"poe_subsets_cuda: {name} is not contiguous")
+    if x.dim() != 3:
+        raise ValueError(f"poe_subsets_cuda: {name} must be [M, B, D], got {tuple(x.shape)}")
+
+
+def _launch(name: str, *args) -> None:
+    lib = _build.load_library()
+    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+class _PoeSubsets(torch.autograd.Function):
+    """Forward: ``poe_subsets_f32``; backward: ``poe_subsets_bwd_f32``,
+    recomputing from the saved inputs (mus, logvars)."""
+
+    @staticmethod
+    def forward(ctx, mus, logvars, masks, prior_t):
+        n_experts, batch, dim = mus.shape
+        mu_out = mus.new_empty((masks.n_subsets, batch, dim))
+        lv_out = torch.empty_like(mu_out)
+        with torch.cuda.device(mus.device):
+            _launch("poe_subsets_f32", mus.data_ptr(), logvars.data_ptr(), mu_out.data_ptr(),
+                    lv_out.data_ptr(), n_experts, batch, dim, masks, prior_t)
+        ctx.save_for_backward(mus, logvars)
+        ctx.masks, ctx.prior_t = masks, prior_t
+        return mu_out, lv_out
+
+    @staticmethod
+    def backward(ctx, dmu_s, dlv_s):
+        mus, logvars = ctx.saved_tensors
+        dmu, dlv = poe_subsets_bwd_cuda(mus, logvars, dmu_s.float().contiguous(),
+                                        dlv_s.float().contiguous(), ctx.masks, ctx.prior_t)
+        return dmu, dlv, None, None
+
+
+def poe_subsets_bwd_cuda(mus, logvars, dmu_s, dlv_s, masks: _build.SubsetMasks,
+                         prior_t: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``poe_subsets_bwd_f32``: dmu, dlv [M, B, D] from the saved inputs
+    [M, B, D] and the upstream gradients [S, B, D], all float32 and
+    contiguous on one CUDA device."""
+    n_experts, batch, dim = mus.shape
+    dmu = torch.empty_like(mus)
+    dlv = torch.empty_like(mus)
+    with torch.cuda.device(mus.device):
+        _launch("poe_subsets_bwd_f32", mus.data_ptr(), logvars.data_ptr(), dmu_s.data_ptr(),
+                dlv_s.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n_experts, batch, dim,
+                masks, prior_t)
+    return dmu, dlv
+
+
 def poe_subsets_cuda(
     mus: torch.Tensor,
     logvars: torch.Tensor,
     subset_mask: np.ndarray,
     prior_expert: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1 on mus, logvars [M, B, D] (f32, contiguous, one CUDA
-    device, no grad). Returns mu, logvar [S, B, D]."""
-    global LAUNCHES
-    for name, x in (("mus", mus), ("logvars", logvars)):
-        if not x.is_cuda:
-            raise ValueError(f"poe_subsets_cuda: {name} is on {x.device}, not a CUDA device")
-        if x.dtype != torch.float32:
-            raise TypeError(f"poe_subsets_cuda: {name} is {x.dtype}; the kernel takes float32")
-        if not x.is_contiguous():
-            raise ValueError(f"poe_subsets_cuda: {name} is not contiguous")
-        if x.requires_grad:
-            raise ValueError(f"poe_subsets_cuda: {name} requires grad; the kernel has no backward")
-        if x.dim() != 3:
-            raise ValueError(f"poe_subsets_cuda: {name} must be [M, B, D], got {tuple(x.shape)}")
+    """K1 on mus, logvars [M, B, D] (f32, contiguous, one CUDA device).
+    Returns mu, logvar [S, B, D]; differentiable through the backward
+    kernel."""
+    _check("mus", mus)
+    _check("logvars", logvars)
     if mus.shape != logvars.shape or mus.device != logvars.device:
         raise ValueError("poe_subsets_cuda: mus and logvars differ in shape or device")
-    n_experts, batch, dim = mus.shape
+    n_experts = mus.shape[0]
     if not 1 <= n_experts <= _build.MAX_EXPERTS:
         raise ValueError(f"{n_experts} experts; the kernel takes 1..{_build.MAX_EXPERTS}")
     masks = _masks(subset_mask, n_experts)
-
-    lib = _build.load_library()
-    mu_out = torch.empty((masks.n_subsets, batch, dim), dtype=torch.float32, device=mus.device)
-    lv_out = torch.empty_like(mu_out)
-    with torch.cuda.device(mus.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.poe_subsets_f32(
-            mus.data_ptr(), logvars.data_ptr(), mu_out.data_ptr(), lv_out.data_ptr(),
-            n_experts, batch, dim, masks, prior_precision(prior_expert), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"poe_subsets_f32 launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return mu_out, lv_out
+    return _PoeSubsets.apply(mus, logvars, masks, prior_precision(prior_expert))

@@ -96,6 +96,65 @@ def poe_subsets(
     return pd_mu, torch.log(pd_var)
 
 
+def poe_subsets_bwd(
+    mus: torch.Tensor,
+    logvars: torch.Tensor,
+    dmu_s: torch.Tensor,
+    dlv_s: torch.Tensor,
+    subset_mask: np.ndarray,
+    prior_expert: bool = False,
+    eps: float = EPS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form backward of ``poe_subsets``: the plain version of the
+    CUDA backward kernel and its oracle.
+
+    Recomputes T_m = 1/(exp(lv_m) + eps), T_S = prior_t + Σ_{m∈S} T_m and
+    mu_S = (Σ mu_m·T_m)/T_S from the saved inputs, then accumulates over
+    the subsets S that contain m (subsets in mask order):
+
+        dmu_m = Σ_S (dmu_S/T_S)·T_m
+        dT_m  = Σ_S (dmu_S/T_S)·(mu_m − mu_S) − dlv_S/T_S
+        dlv_m = −dT_m·exp(lv_m)·T_m²
+
+    mus, logvars: [M, B, D]; dmu_s, dlv_s: [S, B, D]. Returns dmu, dlv
+    of shape [M, B, D].
+    """
+    var = torch.exp(logvars)
+    t = 1.0 / (var + eps)
+    mu_t = mus * t
+    prior_t = prior_precision(prior_expert, eps)
+    dmu = [torch.zeros_like(mus[0]) for _ in range(mus.shape[0])]
+    dt = [torch.zeros_like(mus[0]) for _ in range(mus.shape[0])]
+    for s, members in enumerate(subset_members(subset_mask)):
+        t_sum = prior_t
+        mu_t_sum = 0.0
+        for m in members:
+            t_sum = t_sum + t[m]
+            mu_t_sum = mu_t_sum + mu_t[m]
+        inv = 1.0 / t_sum
+        mu_s = mu_t_sum * inv
+        g = dmu_s[s] * inv
+        g_lv = dlv_s[s] * inv
+        for m in members:
+            dmu[m] = dmu[m] + g * t[m]
+            dt[m] = dt[m] + (g * (mus[m] - mu_s) - g_lv)
+    dmu_all = torch.stack(dmu)
+    dlv_all = -torch.stack(dt) * var * (t * t)
+    return dmu_all, dlv_all
+
+
+def alpha_poe(alpha: torch.Tensor, mus: torch.Tensor, logvars: torch.Tensor,
+              eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted PoE with expert weights alpha [K] over the leading axis
+    (the JSD objective's dynamic prior; fusion.py:128-138 of the JAX
+    package)."""
+    t = 1.0 / (torch.exp(logvars) + eps)
+    alpha = alpha.reshape((-1,) + (1,) * (mus.dim() - 1)).to(mus.dtype)
+    pd_var = 1.0 / torch.sum(alpha * t, dim=0)
+    pd_mu = pd_var * torch.sum(alpha * mus * t, dim=0)
+    return pd_mu, torch.log(pd_var)
+
+
 def _partition_bounds(batch: int, weights: Sequence[float]) -> List[Tuple[int, int]]:
     """Component k owns batch rows [start_k, end_k) with end_k - start_k =
     floor(batch * w_k); the last component absorbs the remainder

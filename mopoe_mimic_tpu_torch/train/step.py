@@ -1,0 +1,216 @@
+"""The train and eval steps.
+
+Port of ``mopoe_mimic_tpu/train/step.py``: forward, objective, gradients,
+clipping and the Adam update, in eager PyTorch. The state is updated in
+place and the step returns its metrics as tensors on the device, so the
+host never waits for the card inside a step.
+
+Method dispatch as in the JAX package: moe, jsd and joint_elbo take
+``calc_joint_elbo_loss``; poe adds a unimodal ELBO per modality, each a
+full forward that advances the BatchNorm running statistics in call order
+(joint, then each modality of the batch).
+
+``cfg.fused_text_head`` sends the text log-likelihood through the fused
+vocab head (``ops/texthead.py``: the CUDA kernels K2 on the card, the
+plain pair on the CPU) for word text at length 128 with a softmax last
+layer. ``compute_dtype="bfloat16"`` runs the step under
+``torch.autocast(bfloat16)``; BatchNorm stays float32
+(``models/resblocks.py``), the fused head's inputs are cast to bfloat16.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, Dict, Mapping, Optional, Union
+
+import torch
+
+from mopoe_mimic_tpu_torch.config import Method
+from mopoe_mimic_tpu_torch.ops.texthead import TextHeadInputs
+from mopoe_mimic_tpu_torch.train.losses import (
+    calc_elbo,
+    calc_joint_elbo_loss,
+    calc_klds,
+    calc_log_probs,
+    modality_log_prob,
+)
+from mopoe_mimic_tpu_torch.train.state import TrainState, warmup_factor
+
+Eps = Optional[Union[torch.Tensor, float]]
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """bfloat16 (under autocast), float32, or float64 (a float64 model:
+    the oracle runs of chip_smoke.py)."""
+    if cfg.compute_dtype not in _DTYPES:
+        raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}")
+    return _DTYPES[cfg.compute_dtype]
+
+
+def _autocast(cfg, device: torch.device):
+    if compute_dtype(cfg) == torch.bfloat16:
+        return torch.autocast(device.type, dtype=torch.bfloat16)
+    return contextlib.nullcontext()
+
+
+def _use_fused_text_head(cfg, batch: Mapping[str, Any]) -> bool:
+    """The fused head applies to the word/128/softmax head only, and only
+    when text is in the batch (step.py:45-55)."""
+    return (cfg.fused_text_head and "text" in batch and cfg.text_encoding == "word"
+            and cfg.len_sequence == 128 and cfg.text_gen_lastlayer == "softmax")
+
+
+def _wrap_text_head(cfg, outs: Dict[str, Any], model) -> Dict[str, Any]:
+    """Put the pre-head features, cast to the compute dtype, and the vocab
+    head's kernel [C, V] and bias in place of the text reconstruction;
+    gradients reach the head's parameters through them."""
+    head = model.decoder("text").text_generator.generator[-1]
+    outs["rec"]["text"] = TextHeadInputs(
+        outs["rec"]["text"].to(compute_dtype(cfg)), head.weight[:, :, 0].t(), head.bias)
+    return outs
+
+
+def _to_device(batch: Mapping[str, Any], param: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Tensors on the parameters' device; uint8 modalities dequantised by
+    1/255, floating ones in the parameters' dtype."""
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v).to(param.device, non_blocking=True)
+        if v.dtype == torch.uint8:
+            v = v.to(param.dtype) / 255.0
+        out[k] = v.to(param.dtype) if v.is_floating_point() else v
+    return out
+
+
+def _forward_and_objective(cfg, model, batch: Mapping[str, torch.Tensor],
+                           generator: Optional[torch.Generator] = None, eps: Eps = None):
+    """Forward, total loss and metrics (step.py:72-169). ``eps`` injects the
+    reparameterisation noise (``eps=0`` decodes the joint's means)."""
+    fused_text = _use_fused_text_head(cfg, batch)
+    outs = model(batch, text_prehead=fused_text, generator=generator, eps=eps)
+    if fused_text:
+        outs = _wrap_text_head(cfg, outs, model)
+
+    log_probs, weighted_lp = calc_log_probs(cfg, outs["rec"], batch)
+    klds = calc_klds(cfg, outs["latents"]["subsets"])
+    group_div = outs["joint_divergence"]
+
+    if cfg.method_enum is Method.POE:
+        # one unimodal forward per modality, in batch order, each advancing
+        # the BN running statistics (step.py:113-139)
+        elbos = {}
+        for m in batch:
+            fused_m = fused_text and m == "text"
+            outs_m = model({m: batch[m]}, text_prehead=fused_m, generator=generator, eps=eps)
+            if fused_m:
+                outs_m = _wrap_text_head(cfg, outs_m, model)
+            rec_m = -modality_log_prob(cfg, m, outs_m["rec"][m], batch[m])
+            elbos[m] = calc_elbo(cfg, m, {m: rec_m}, klds[m])
+        elbos["joint"] = calc_elbo(cfg, "joint", log_probs, group_div)
+        total_loss = sum(elbos.values())
+    else:
+        total_loss = calc_joint_elbo_loss(cfg, weighted_lp, group_div)
+
+    posteriors = outs["latents"]["modalities"]
+    nan_in_latents = torch.stack([torch.isnan(t).any() for mu_lv in posteriors.values()
+                                  for t in mu_lv]).any()
+    metrics = {
+        "total_loss": total_loss,
+        "joint_divergence": group_div,
+        "klds": klds,
+        "log_probs": log_probs,
+        "weighted_log_prob": weighted_lp,
+        "latents": {m: (mu.mean(), lv.mean()) for m, (mu, lv) in posteriors.items()},
+        "nan_in_latents": nan_in_latents,
+    }
+    return total_loss, metrics
+
+
+def loss_terms(metrics: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Every scalar loss term of a step's metrics, by name: the total, the
+    joint divergence, the weighted log-probability, ``kld/<subset>`` and
+    ``log_prob/<modality>``."""
+    terms = {k: metrics[k] for k in ("total_loss", "joint_divergence", "weighted_log_prob")}
+    terms.update({f"kld/{k}": v for k, v in metrics["klds"].items()})
+    terms.update({f"log_prob/{k}": v for k, v in metrics["log_probs"].items()})
+    return terms
+
+
+def _detach(tree):
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_detach(v) for v in tree)
+    return tree.detach()
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt(Σ x²) over every tensor, as ``optax.global_norm``."""
+    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+
+
+def make_train_step(cfg, eps: Eps = None) -> Callable[[TrainState, Mapping[str, Any]], Dict]:
+    """``train_step(state, batch) -> metrics``: one Adam step in place.
+
+    ``batch`` holds the port's layouts (images NCHW, text ids [B, L]) as
+    tensors or numpy arrays. ``metrics["grad_norm"]`` is the global norm
+    before clipping (step.py:207). ``eps`` injects the reparameterisation
+    noise for tests; by default it is drawn from ``state.generator``."""
+    clip = float(cfg.grad_clip_norm)
+
+    def train_step(state: TrainState, batch: Mapping[str, Any]) -> Dict[str, Any]:
+        model, opt = state.model, state.optimizer
+        param = next(model.parameters())
+        device = param.device
+        batch = _to_device(batch, param)
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        with _autocast(cfg, device):
+            total, metrics = _forward_and_objective(cfg, model, batch, state.generator, eps)
+        total.backward()
+
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for p in params:  # optax updates every leaf, zero gradients included
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        grad_norm = global_norm(grads)
+        if clip > 0:  # optax.clip_by_global_norm
+            scale = torch.where(grad_norm < clip, torch.ones_like(grad_norm), clip / grad_norm)
+            torch._foreach_mul_(grads, scale)
+        ramp = warmup_factor(cfg, state.step)
+        for group in opt.param_groups:
+            group["lr"] = group["base_lr"] * ramp
+        opt.step()
+        state.step += 1
+        metrics = _detach(metrics)
+        metrics["grad_norm"] = grad_norm.detach()
+        return metrics
+
+    return train_step
+
+
+def make_eval_step(cfg, eps: Eps = None) -> Callable[..., Dict]:
+    """``eval_step(state, batch, generator=None) -> metrics``: the forward
+    in eval mode (BN running statistics, no dropout) and the objective,
+    without gradients; noise from ``generator`` or ``state.generator``."""
+
+    def eval_step(state: TrainState, batch: Mapping[str, Any],
+                  generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        model = state.model
+        param = next(model.parameters())
+        device = param.device
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad(), _autocast(cfg, device):
+                _, metrics = _forward_and_objective(cfg, model, _to_device(batch, param),
+                                                   generator or state.generator, eps)
+        finally:
+            model.train(was_training)
+        return metrics
+
+    return eval_step

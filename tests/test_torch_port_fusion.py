@@ -1,20 +1,30 @@
-"""The port's fusion ops (mopoe_mimic_tpu_torch/ops) against the JAX package.
+"""The port's latent-space ops (mopoe_mimic_tpu_torch/ops: fusion, kl,
+distributions) against the JAX package.
 
 Same numpy inputs through both frameworks, float32 on the CPU. The port's
 plain ``poe_subsets`` is the oracle of the CUDA kernel K1, so it is held
 against the Pallas kernel (interpret mode, as tests/test_pallas_fusion.py
 runs it) and the JAX plain version. Tolerance 1e-6 absolute: the same
 operations in the same order, so only exp/log rounding may differ.
+Gradients (K1's backward: autograd of the plain forward and the closed
+form ``poe_subsets_bwd`` that the CUDA backward computes) are held against
+``jax.vjp`` of the Pallas kernel at 1e-5·max(1, |ref|): another order of
+operations. KL divergences and log-probabilities: rtol 1e-5.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mopoe_mimic_tpu.ops import distributions as JD
 from mopoe_mimic_tpu.ops import fusion as JF
+from mopoe_mimic_tpu.ops import kl as JK
 from mopoe_mimic_tpu.ops.pallas_fusion import poe_subsets_pallas
+from mopoe_mimic_tpu_torch.ops import distributions as TD
 from mopoe_mimic_tpu_torch.ops import fusion as TF
+from mopoe_mimic_tpu_torch.ops import kl as TK
 from mopoe_mimic_tpu_torch.ops.cuda_fusion import poe_subsets_cuda
 from mopoe_mimic_tpu_torch.ops.sampling import reparameterize
 
@@ -91,3 +101,99 @@ def test_poe_subsets_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="not a CUDA device"):
         poe_subsets_cuda(torch.from_numpy(mus), torch.from_numpy(lvs),
                          TF.subset_mask_matrix(NAMES))
+
+
+def _close_grad(got, ref):
+    ref = np.asarray(ref)
+    err = np.abs(np.asarray(got) - ref)
+    assert (err <= 1e-5 * np.maximum(1.0, np.abs(ref))).all(), float(err.max())
+
+
+@pytest.mark.parametrize("prior", [False, True])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_poe_subsets_gradients_match_jax_vjp(m, prior):
+    """K1's backward: the port's autograd through the plain forward and the
+    closed form ``poe_subsets_bwd`` against jax.vjp of the Pallas kernel."""
+    mus, lvs = _posteriors(m, 5, seed=10 * m + prior)
+    mask = TF.subset_mask_matrix(NAMES[:m])
+    rng = np.random.default_rng(m)
+    dmu_s = rng.normal(size=(mask.shape[0], 5, D)).astype(np.float32)
+    dlv_s = rng.normal(size=(mask.shape[0], 5, D)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: poe_subsets_pallas(a, b, mask, prior_expert=prior,
+                                                     interpret=True),
+                     jnp.asarray(mus), jnp.asarray(lvs))
+    ref = vjp((jnp.asarray(dmu_s), jnp.asarray(dlv_s)))
+
+    x = (torch.from_numpy(mus).requires_grad_(), torch.from_numpy(lvs).requires_grad_())
+    out = TF.poe_subsets(*x, mask, prior_expert=prior)
+    auto = torch.autograd.grad(out, x, (torch.from_numpy(dmu_s), torch.from_numpy(dlv_s)))
+    closed = TF.poe_subsets_bwd(torch.from_numpy(mus), torch.from_numpy(lvs),
+                                torch.from_numpy(dmu_s), torch.from_numpy(dlv_s), mask,
+                                prior_expert=prior)
+    for got in (auto, closed):
+        for g, r in zip(got, ref):
+            _close_grad(g.numpy(), r)
+    for g, r in zip(closed, auto):  # the CUDA backward's oracle against autograd
+        _close_grad(g.numpy(), r.numpy())
+
+
+def test_alpha_poe_matches_jax():
+    mus, lvs = _posteriors(4, 5, seed=11)
+    w = np.asarray([0.1, 0.2, 0.3, 0.4], np.float32)
+    got = TF.alpha_poe(torch.from_numpy(w), torch.from_numpy(mus), torch.from_numpy(lvs))
+    ref = JF.alpha_poe(jnp.asarray(w), jnp.asarray(mus), jnp.asarray(lvs))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("target", ["prior", "other"])
+def test_kl_divergences_match_jax(target):
+    mu0, lv0 = _posteriors(3, 5, seed=12)
+    mu1, lv1 = _posteriors(3, 5, seed=13) if target == "other" else (None, None)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    pairs = [
+        (TK.kl_divergence(t(mu0), t(lv0), t(mu1), t(lv1), norm_value=4),
+         JK.kl_divergence(j(mu0), j(lv0), j(mu1), j(lv1), norm_value=4)),
+        (TK.kl_divergence_batched(t(mu0), t(lv0), t(mu1), t(lv1), norm_value=4),
+         JK.kl_divergence_batched(j(mu0), j(lv0), j(mu1), j(lv1), norm_value=4)),
+    ]
+    for got, ref in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+def test_joint_divergences_match_jax():
+    mus, lvs = _posteriors(4, 6, seed=14)
+    w = np.full((4,), 0.25, np.float32)
+    args_t = (torch.from_numpy(mus), torch.from_numpy(lvs), torch.from_numpy(w))
+    args_j = (jnp.asarray(mus), jnp.asarray(lvs), jnp.asarray(w))
+    got, ref = TK.group_divergence_moe(*args_t, 6), JK.group_divergence_moe(*args_j, 6)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-6)
+    got, ref = TK.alpha_jsd_divergence(*args_t, 6), JK.alpha_jsd_divergence(*args_j, 6)
+    for g, r in zip(got[:2] + got[2], ref[:2] + ref[2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["laplace", "normal", "bernoulli", "categorical"])
+def test_log_probs_match_jax(name):
+    rng = np.random.default_rng(15)
+    x = rng.random((4, 6, 5)).astype(np.float32)
+    loc = rng.random((4, 6, 5)).astype(np.float32)
+    if name == "laplace":
+        got, ref = TD.laplace_log_prob(torch.from_numpy(x), torch.from_numpy(loc), 0.75), \
+            JD.laplace_log_prob(jnp.asarray(x), jnp.asarray(loc), 0.75)
+    elif name == "normal":
+        got, ref = TD.normal_log_prob(torch.from_numpy(x), torch.from_numpy(loc), 0.75), \
+            JD.normal_log_prob(jnp.asarray(x), jnp.asarray(loc), 0.75)
+    elif name == "bernoulli":
+        xb = (x > 0.5).astype(np.float32)
+        got, ref = TD.bernoulli_log_prob(torch.from_numpy(xb), torch.from_numpy(loc)), \
+            JD.bernoulli_log_prob(jnp.asarray(xb), jnp.asarray(loc))
+    else:
+        onehot = np.eye(5, dtype=np.float32)[rng.integers(0, 5, (4, 6))]
+        logits = rng.normal(size=(4, 6, 5)).astype(np.float32)
+        got, ref = TD.one_hot_categorical_log_prob(torch.from_numpy(onehot),
+                                                   torch.from_numpy(logits)), \
+            JD.one_hot_categorical_log_prob(jnp.asarray(onehot), jnp.asarray(logits))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)

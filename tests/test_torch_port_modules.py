@@ -1,12 +1,19 @@
 """The port's networks (mopoe_mimic_tpu_torch/models) against the JAX
-package's, module by module, in eval mode and float32 on the CPU.
+package's, module by module, float32 on the CPU: in eval mode, and in
+train mode with dropout off.
 
 Each JAX module is initialised, its params and batch_stats get seeded
 noise (so that every weight, bias and running statistic matters), the
 variables go through ``state_dict_from_jax`` into the port's module, and
-both run the same numpy input. Tolerance: rtol 1e-4 and atol
-1e-5·max(1, max|ref|) — float32 convolutions summed in another order by
-another library, through up to eight layers.
+both run the same numpy input. In train mode BatchNorm normalises with the
+batch statistics and advances its running statistics (momentum 0.1,
+unbiased variance: resblocks.py:197-200, 304-310 of the JAX package); the
+updated running statistics are compared too. Dropout is off on both sides:
+the JAX blocks' ``_dropout`` is the identity (as
+tests/test_golden_mmvae_core.py patches it), the port's dropout modules
+have p = 0. Tolerance: rtol 1e-4 and atol 1e-5·max(1, max|ref|) — float32
+convolutions summed in another order by another library, through up to
+eight layers.
 """
 
 import jax
@@ -62,22 +69,50 @@ def port_weights(top, group, module_vars, strip):
     return {k[len(strip):]: v for k, v in sd.items()}
 
 
-def run_pair(jax_module, port_module, x_jax, x_port, top, group, strip, seed):
+def _placed(variables, group):
+    return {c: {"resblock_1": v} for c, v in variables.items()} if group is not None else variables
+
+
+def run_pair(jax_module, port_module, x_jax, x_port, top, group, strip, seed, train=False,
+             **call_kw):
     """Noisy JAX variables → both modules → (port output, JAX output).
-    With ``group`` set, the module is a block placed as ``resblock_1``."""
+    With ``group`` set, the module is a block placed as ``resblock_1``.
+    With ``train``, also → (port running stats, JAX updated running stats),
+    both as the port's state_dict entries."""
     rng = np.random.default_rng(seed)
-    variables = jax_module.init(jax.random.PRNGKey(seed), x_jax, train=False)
+    variables = jax_module.init(jax.random.PRNGKey(seed), x_jax, train=False, **call_kw)
     variables = {c: noisy(jax.device_get(v), rng) for c, v in variables.items()}
-    ref = jax_module.apply(variables, x_jax, train=False)
-    if group is not None:
-        placed = {c: {"resblock_1": v} for c, v in variables.items()}
-    else:
-        placed = variables
-    port_module.load_state_dict(port_weights(top, group, placed, strip))
-    port_module.eval()
+    port_module.load_state_dict(port_weights(top, group, _placed(variables, group), strip))
+    if not train:
+        ref = jax_module.apply(variables, x_jax, train=False, **call_kw)
+        port_module.eval()
+        with torch.no_grad():
+            got = port_module(x_port, **call_kw)
+        return got, ref
+    ref, mut = jax_module.apply(variables, x_jax, train=True, mutable=["batch_stats"],
+                                rngs={"dropout": jax.random.PRNGKey(0)}, **call_kw)
+    updated = dict(variables, batch_stats=jax.device_get(mut["batch_stats"]))
+    ref_stats = {k: v for k, v in port_weights(top, group, _placed(updated, group), strip).items()
+                 if k.endswith(("running_mean", "running_var"))}
+    port_module.train()
+    for mod in port_module.modules():
+        if isinstance(mod, (torch.nn.Dropout, torch.nn.Dropout2d)):
+            mod.p = 0.0
     with torch.no_grad():
-        got = port_module(x_port)
-    return got, ref
+        got = port_module(x_port, **call_kw)
+    sd = port_module.state_dict()
+    return got, ref, {k: sd[k] for k in ref_stats}, ref_stats
+
+
+@pytest.fixture
+def no_jax_dropout(monkeypatch):
+    monkeypatch.setattr(JR._BlockBase, "_dropout", lambda self, x, det, r: x)
+
+
+def assert_stats_close(got, ref):
+    assert got.keys() == ref.keys() and got
+    for k in ref:
+        assert_close(got[k].numpy(), ref[k].numpy())
 
 
 BLOCKS = {
@@ -152,3 +187,89 @@ def test_word_decoder_matches_jax():
         jnp.asarray(z), torch.from_numpy(z), "decoder_text", None, "decoder_text.", seed=10)
     assert got.shape == (BATCH, LEN, VOCAB)
     assert_close(got.numpy(), ref)
+
+
+# ---------------------------------------------------------------------------
+# train mode: batch statistics and the running-statistics update
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", sorted(BLOCKS))
+def test_residual_block_train_mode_matches_jax(kind, no_jax_dropout):
+    j_cls, t_cls, spatial, kw, top, group, strip = BLOCKS[kind]
+    cin, cout = 3, 5
+    x = np.random.default_rng(11).normal(size=(BATCH,) + (8,) * spatial + (cin,)).astype(np.float32)
+    got, ref, stats, ref_stats = run_pair(
+        j_cls(features=cout, kernel_size=4, stride=2, padding=1, **kw), t_cls(cin, cout, 4, 2, 1),
+        jnp.asarray(x), torch.from_numpy(np.moveaxis(x, -1, 1).copy()), top, group, strip,
+        seed=12, train=True)
+    assert_close(np.moveaxis(got.numpy(), 1, -1), ref)
+    assert_stats_close(stats, ref_stats)
+
+
+def _img(seed):
+    return np.random.default_rng(seed).random((BATCH, IMG, IMG, 1)).astype(np.float32)
+
+
+def _z(seed):
+    return np.random.default_rng(seed).normal(size=(BATCH, CLASS_DIM)).astype(np.float32)
+
+
+def _ids(seed):
+    ids = np.random.default_rng(seed).integers(0, VOCAB, (BATCH, LEN))
+    ids[:, :5] = 0
+    return ids
+
+
+TRAIN_MODULES = {
+    # name: (JAX module, port module, JAX input, port input, top, key prefix,
+    #        JAX call kwargs, port output → JAX layout)
+    "image_encoder": lambda: (
+        JI.EncoderImg(dim=DIM, class_dim=CLASS_DIM, img_size=IMG), TI.EncoderImg(DIM, CLASS_DIM, IMG),
+        jnp.asarray(_img(13)), torch.from_numpy(_img(13).transpose(0, 3, 1, 2).copy()),
+        "encoder_PA", "encoder_pa.", {}, lambda out: [o.numpy() for o in out]),
+    "image_decoder": lambda: (
+        JI.DecoderImg(dim=DIM, class_dim=CLASS_DIM, img_size=IMG), TI.DecoderImg(DIM, CLASS_DIM, IMG),
+        jnp.asarray(_z(14)), torch.from_numpy(_z(14)), "decoder_PA", "decoder_pa.", {},
+        lambda out: out.numpy().transpose(0, 2, 3, 1)),
+    "word_encoder": lambda: (
+        JT.EncoderText(dim=DIM, class_dim=CLASS_DIM, text_encoding="word", vocab_size=VOCAB,
+                       len_sequence=LEN),
+        TT.EncoderText(DIM, CLASS_DIM, VOCAB, LEN), jnp.asarray(_ids(15), jnp.int32),
+        torch.from_numpy(_ids(15)), "encoder_text", "encoder_text.", {},
+        lambda out: [o.numpy() for o in out]),
+    "word_decoder": lambda: (
+        JT.DecoderText(dim=DIM, class_dim=CLASS_DIM, text_encoding="word", num_features=VOCAB,
+                       len_sequence=LEN, last_layer="softmax"),
+        TT.DecoderText(DIM, CLASS_DIM, VOCAB, LEN), jnp.asarray(_z(16)), torch.from_numpy(_z(16)),
+        "decoder_text", "decoder_text.", {}, lambda out: out.numpy()),
+    "word_decoder_prehead": lambda: (
+        JT.DecoderText(dim=DIM, class_dim=CLASS_DIM, text_encoding="word", num_features=VOCAB,
+                       len_sequence=LEN, last_layer="softmax"),
+        TT.DecoderText(DIM, CLASS_DIM, VOCAB, LEN), jnp.asarray(_z(17)), torch.from_numpy(_z(17)),
+        "decoder_text", "decoder_text.", {"prehead": True}, lambda out: out.numpy()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_MODULES))
+def test_network_train_mode_matches_jax(name, no_jax_dropout):
+    j_mod, t_mod, x_jax, x_port, top, strip, call_kw, to_jax = TRAIN_MODULES[name]()
+    got, ref, stats, ref_stats = run_pair(j_mod, t_mod, x_jax, x_port, top, None, strip,
+                                          seed=18, train=True, **call_kw)
+    got = to_jax(got)
+    for g, r in zip(got, ref) if isinstance(got, list) else [(got, ref)]:
+        assert_close(g, r)
+    assert_stats_close(stats, ref_stats)
+
+
+def test_word_decoder_prehead_shape_and_head():
+    """prehead returns [B, L, DIM] features; the vocab head on them gives
+    the decoder's own output; the parameter set is unchanged."""
+    dec = TT.DecoderText(DIM, CLASS_DIM, VOCAB, LEN).eval()
+    z = torch.from_numpy(_z(19))
+    with torch.no_grad():
+        feats = dec(z, prehead=True)
+        full = dec(z)
+        head = dec.text_generator.generator[-1]
+        logits = feats @ head.weight[:, :, 0].t() + head.bias
+    assert feats.shape == (BATCH, LEN, DIM)
+    torch.testing.assert_close(torch.log_softmax(logits, -1), full, rtol=1e-5, atol=1e-5)
