@@ -22,6 +22,21 @@ any failure of which exits non-zero:
      1e-5; dh, dW, db rtol 1e-4 atol 1e-5; the plain pair accumulated in
      float64), and the flagship in bfloat16 (lp |Δ| ≤ 1e-3·max(1, |ref|),
      each gradient |Δ| ≤ 2e-2·max|ref|); each kernel timed at the flagship;
+     K3 (forward, pass A's partials and their finalize, pass B) against the
+     plain versions at the flagship's block shapes (B, C, Co, spatial) =
+     (3, 64, 64, 5×5) with a conv bias, (256, 64, 64, 64×64) (the largest),
+     (256, 320, 320, 1), (256, 320, 320, 4×4) and (256, 256, 256, 64)
+     (1-D), W from a conv and from a transposed-conv weight: in float32
+     with TF32 off against the plain versions accumulated in float64 (y and
+     dx rtol 1e-5, dW, dcb, dγ, dβ rtol 1e-4, all atol 1e-5·max|ref|), and
+     in bfloat16 (W, dy; x too where the flagship feeds it bf16) against the
+     plain versions on the same inputs (y |Δ| ≤ 1e-2·max|ref|, gradients
+     2e-2·max|ref|); each kernel timed at the largest block and at
+     (256, 320, 320, 4×4) in bfloat16 against its plain version (pass A
+     as one function, its partials and their finalize together, against
+     pass A's bound), and the fused op against the unfused cuDNN
+     composition (the block's bn1 → relu → conv1 modules), forward and
+     forward + backward;
   4. the serving slice at the flagship configuration's full width
      (configs/flagship.json: 128 px, word text len 128, vocab 3517,
      DIM 64, class_dim 64; random weights from seed 0, randomised BN
@@ -40,22 +55,31 @@ any failure of which exits non-zero:
      BN running statistics changed, grad_norm finite and > 0, and K1
      forward, K1 backward and K2's three kernels launched in every step;
      the step's p50 and samples/s, then a profile of 3 steps (device idle
-     share);
+     share); then the same run with ``fused_pointwise=True`` as well, with
+     each of K3's four kernels launched exactly 32 times per step (one per
+     residual block), its p50, samples/s and profile beside the first; then
+     both steps timed in turns (A B B A, 5 steps a turn);
   8. one train step on the GPU (kernels) against one on the CPU (plain
      versions): flagship width, batch 8, float32, TF32 off, dropout 0,
      eps = 0, same weights: every loss term within rtol 1e-4; the gradients
      that the kernels produce or feed within 1e-3·max|g| of the tensor,
      all gradients within 1e-3 relative (L2), each within 1e-3·max|g| of
      the tensor plus 1e-3·max|g| of the model (float32's own floor on the
-     tensors that are ill-conditioned at init: ``gpu_step_against_cpu``).
+     tensors that are ill-conditioned at init: ``gpu_step_against_cpu``);
+     then the same with ``fused_pointwise=True`` (K3's own accuracy is
+     judged by phase 3).
 
-The last lines are a JSON object of the kernels, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are a JSON object of the kernels (each with its launches on
+its path, error, time, plain time, the least time the card could take for
+its bytes and operations, and the time of a single PyTorch call computing
+the same function where one exists), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -67,8 +91,9 @@ import torch
 
 from mopoe_mimic_tpu_torch.config import MopoeConfig
 from mopoe_mimic_tpu_torch.models.mmvae import MMVae
-from mopoe_mimic_tpu_torch.ops import _build, cuda_fusion, cuda_texthead
+from mopoe_mimic_tpu_torch.ops import _build, cuda_fusion, cuda_pointwise, cuda_texthead
 from mopoe_mimic_tpu_torch.ops import fusion as F
+from mopoe_mimic_tpu_torch.ops import pointwise as PW
 from mopoe_mimic_tpu_torch.ops import texthead as TH
 from mopoe_mimic_tpu_torch.serve import InferenceSession
 from mopoe_mimic_tpu_torch.train.state import create_train_state
@@ -78,13 +103,21 @@ ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "configs" / "flagship.json"
 K1_SOURCE = "mopoe_mimic_tpu_torch/csrc/poe_subsets.cu"
 K2_SOURCE = "mopoe_mimic_tpu_torch/csrc/texthead.cu"
+K3_SOURCE = "mopoe_mimic_tpu_torch/csrc/pointwise.cu"
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "poe_subsets_f32": (K1_SOURCE, "mopoe_mimic_tpu/ops/pallas_fusion.py:42"),
     "poe_subsets_bwd_f32": (K1_SOURCE, "mopoe_mimic_tpu/ops/pallas_fusion.py:86"),
     "texthead_fwd": (K2_SOURCE, "mopoe_mimic_tpu/ops/pallas_texthead.py:72"),
     "texthead_bwd_dh": (K2_SOURCE, "mopoe_mimic_tpu/ops/pallas_texthead.py:88"),
     "texthead_bwd_dw": (K2_SOURCE, "mopoe_mimic_tpu/ops/pallas_texthead.py:88"),
+    "pointwise_fwd": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:81"),
+    "pointwise_bwd_reduce": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:88"),
+    "pointwise_bwd_finalize": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:88"),
+    "pointwise_bwd_dx": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:119"),
 }
+K3 = tuple(name for name, (source, _) in KERNELS.items() if source == K3_SOURCE)
+K12 = tuple(name for name in KERNELS if name not in K3)  # the fused_text_head run's kernels
+K3_CALLS_PER_STEP = 32  # residual blocks of a joint_elbo flagship step
 NAMES = ("PA", "Lateral", "text")
 FLAGSHIP_HEAD = (256, 128, 64, 3517)  # K2 at the flagship: (B, L, C, V)
 TRAIN_WARMUP_STEPS = 300  # lr_warmup_steps of the training phase
@@ -98,6 +131,27 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's H100 datasheet):
+# HBM bytes/s, and dense operations/s by operand type (bf16 on tensor cores,
+# float32 on the CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def least_time(moved: int, ops: float, dtype: torch.dtype) -> dict:
+    """The least time the card could take: the larger of ``moved`` bytes
+    (each input read once, each output written once) over the HBM rate and
+    ``ops`` operations over the peak for ``dtype``."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def card() -> str:
@@ -153,6 +207,7 @@ def k1_against_plain(device: torch.device) -> dict:
 
     times = {}
     mask = F.subset_mask_matrix(NAMES)
+    n_sub, members = mask.shape[0], int(np.asarray(mask).sum())
     for b in (128, 256):
         mus = torch.randn((3, b, 64), device=device)
         lvs = torch.randn((3, b, 64), device=device)
@@ -161,7 +216,12 @@ def k1_against_plain(device: torch.device) -> dict:
         times[b] = (k_ms, p_ms)
         print(f"K1 time M=3 B={b} D=64: kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us "
               "(median of 100 calls, CUDA events)")
-    return {"max_abs_err": worst, "ms": times[128][0], "plain_ms": times[128][1]}
+    # per (b, d): M precisions (exp, add, divide), per subset the member sums
+    # of T and mu·T, a divide and a log
+    ops = 128 * 64 * (3 * 3 + 2 * members + 3 * n_sub)
+    return {"max_abs_err": worst, "ms": times[128][0], "plain_ms": times[128][1],
+            **least_time(2 * 3 * 128 * 64 * 4 + 2 * n_sub * 128 * 64 * 4, ops, torch.float32),
+            "library_ms": None}
 
 
 def k1_bwd_against_plain(device: torch.device) -> dict:
@@ -203,7 +263,11 @@ def k1_bwd_against_plain(device: torch.device) -> dict:
     p_ms = cuda_ms(lambda: F.poe_subsets_bwd(mus, lvs, dmu_s, dlv_s, mask))
     print(f"K1 bwd time M=3 B=256 D=64: kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us "
           "(median of 100 calls, CUDA events)")
-    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}
+    # the forward's operations recomputed, and about as many again for the VJP
+    ops = 2 * 256 * 64 * (3 * 3 + 2 * int(np.asarray(mask).sum()) + 3 * mask.shape[0])
+    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms,
+            **least_time(nbytes(mus, lvs, dmu_s, dlv_s, mus, lvs), ops, torch.float32),
+            "library_ms": None}
 
 
 def k2_case(device, B, L, C, V, dtype, seed):
@@ -279,14 +343,213 @@ def k2_against_plain(device: torch.device) -> dict:
         "texthead_bwd_dw": (lambda: cuda_texthead.texthead_bwd_dw_cuda(h, k, b, t, lse, g),
                             plain_dw),
     }
+    # the products: logits (2·R·C·V) in the forward; logits again and one
+    # more product in each backward kernel; bf16 operands on tensor cores
+    R, C, V = h.shape[0], h.shape[1], k.shape[1]
+    product = 2 * R * C * V
+    bounds = {
+        "texthead_fwd": least_time(nbytes(h, k, b, t) + 2 * R * 4, product, torch.bfloat16),
+        "texthead_bwd_dh": least_time(nbytes(h, k, b, t, lse, g, h), 2 * product,
+                                      torch.bfloat16),
+        "texthead_bwd_dw": least_time(nbytes(h, k, b, t, lse, g) + (C * V + V) * 4,
+                                      2 * product, torch.bfloat16),
+    }
     out = {}
     for name, (kernel_fn, plain_fn) in timed.items():
         k_ms = cuda_ms(kernel_fn, calls=20, warmup=3)
         p_ms = cuda_ms(plain_fn, calls=20, warmup=3)
-        out[name] = {"max_abs_err": worst[name], "ms": k_ms, "plain_ms": p_ms}
+        out[name] = {"max_abs_err": worst[name], "ms": k_ms, "plain_ms": p_ms, **bounds[name],
+                     "library_ms": None}
         print(f"K2 {name} time (B,L,C,V)={FLAGSHIP_HEAD} bf16: kernel {k_ms:.3f} ms, "
               f"plain {p_ms:.3f} ms (median of 20 calls, CUDA events)")
     return out
+
+
+# (B, C, Co, spatial, conv bias, x in bfloat16 in the bf16 check): blocks of
+# the flagship step
+K3_CASES = (
+    (3, 64, 64, (5, 5), True, True),        # small, odd rows
+    (256, 64, 64, (64, 64), False, True),   # image encoder resblock_1 on the stem's bf16 output
+    (256, 320, 320, (1,), True, False),     # the decoders' first block, S = 1
+    (256, 320, 320, (4, 4), False, False),  # image encoder resblock_5
+    (256, 256, 256, (64,), True, False),    # text decoder resblock_6 (1-D transpose)
+)
+K3_TIMED = (1, 3)  # the largest block and a C = 320 block
+
+
+def k3_case(device, B, C, Co, spatial, bias, transpose, x_dtype, w_dtype, seed):
+    """Seeded K3 inputs as a block hands them to the kernels: x3 [B, C, S],
+    gamma, beta, its batch statistics (mean, inv), W [C, Co] taken from a
+    conv1 weight of the given layout (non-symmetric), cb, and dy [B, Co, S]."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    S = math.prod(spatial)
+    x3 = (1.3 * rn(B, C, S) + 0.2).to(x_dtype)
+    mean, var = PW.batch_stats(x3)
+    weight = rn(*((C, Co) if transpose else (Co, C)), *([1] * len(spatial))) / math.sqrt(C)
+    w = PW.conv1x1_matrix(weight, transpose).to(w_dtype).contiguous()
+    cb = 0.1 * rn(Co) if bias else torch.zeros(Co, device=device)
+    return (x3, 1.0 + 0.2 * rn(C), 0.1 * rn(C), mean, PW.inv_std(var, 1e-5), w, cb,
+            rn(B, Co, S).to(w_dtype))
+
+
+def k3_run(args):
+    """K3's kernels (forward, pass A, pass B) on ``args``."""
+    x3, g, b, m, inv, w, cb, dy = args
+    y = cuda_pointwise.pointwise_fwd_cuda(x3, g, b, m, inv, w, cb)
+    dw, dcb, dg, db = cuda_pointwise.pointwise_bwd_reduce_cuda(x3, g, b, m, inv, w, dy)
+    return y, cuda_pointwise.pointwise_bwd_dx_cuda(x3, g, b, m, inv, w, dy, dg, db), dw, dcb, dg, db
+
+
+def k3_plain(args, acc=None):
+    x3, g, b, m, inv, w, cb, dy = args
+    y = PW.pointwise_fwd_plain(x3, g, b, m, inv, w, cb, acc)
+    dw, dcb, dg, db = PW.pointwise_bwd_reduce_plain(x3, g, b, m, inv, w, dy, acc)
+    return y, PW.pointwise_bwd_dx_plain(x3, g, b, m, inv, w, dy, dg, db, acc), dw, dcb, dg, db
+
+
+def k3_against_plain(device: torch.device) -> dict:
+    """K3's four kernels against the plain versions at the flagship's block
+    shapes, both conv1 layouts, float32 (plain accumulated in float64) and
+    bfloat16; then timed at K3_TIMED in bfloat16 against the plain versions,
+    and the fused op against the unfused cuDNN composition."""
+    def close(got, ref, rtol, atol_frac, what):
+        ref = ref.double()
+        err = (got.double() - ref).abs()
+        atol = atol_frac * ref.abs().max().item()
+        check(bool((err <= atol + rtol * ref.abs()).all()),
+              f"K3 {what}: max |Δ| {err.max().item():.3e} (max|ref| {ref.abs().max().item():.3e})")
+        return err.max().item()
+
+    names = ("y", "dx", "dW", "dcb", "dgamma", "dbeta")
+    worst = dict.fromkeys(K3, 0.0)
+    for i, (B, C, Co, spatial, bias, x_bf16) in enumerate(K3_CASES):
+        for transpose in (False, True):
+            for w_dtype in (torch.float32, torch.bfloat16):
+                x_dtype = torch.bfloat16 if w_dtype == torch.bfloat16 and x_bf16 else torch.float32
+                args = k3_case(device, B, C, Co, spatial, bias, transpose, x_dtype, w_dtype,
+                               seed=40 + i)
+                got = k3_run(args)
+                if w_dtype == torch.float32:
+                    ref = k3_plain(args, torch.float64)
+                    errs = [close(a, r, rtol, 1e-5, f"{n} {(B, C, Co, spatial)} f32")
+                            for a, r, n, rtol in zip(got, ref, names, (1e-5,) * 2 + (1e-4,) * 4)]
+                else:
+                    ref = k3_plain(args)
+                    ref = (ref[0].to(w_dtype),) + ref[1:]  # y rounded as the kernel stores it
+                    errs = [close(a, r, 0.0, frac, f"{n} {(B, C, Co, spatial)} bf16")
+                            for a, r, n, frac in zip(got, ref, names, (1e-2,) + (2e-2,) * 5)]
+                torch.cuda.synchronize()
+                worst["pointwise_fwd"] = max(worst["pointwise_fwd"], errs[0])
+                worst["pointwise_bwd_dx"] = max(worst["pointwise_bwd_dx"], errs[1])
+                for name in ("pointwise_bwd_reduce", "pointwise_bwd_finalize"):
+                    worst[name] = max(worst[name], *errs[2:])
+                print(f"K3 vs plain (B,C,Co)={(B, C, Co)} spatial {spatial} "
+                      f"{'transpose' if transpose else 'conv'} x {str(x_dtype)[6:]} "
+                      f"W {str(w_dtype)[6:]}: max |Δ| "
+                      + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)))
+        del args, got, ref
+
+    out = {}
+    for i in K3_TIMED:
+        B, C, Co, spatial, bias, x_bf16 = K3_CASES[i]
+        args = k3_case(device, B, C, Co, spatial, bias, False,
+                       torch.bfloat16 if x_bf16 else torch.float32, torch.bfloat16, seed=50 + i)
+        x3, g, b, m, inv, w, cb, dy = args
+        parts = cuda_pointwise.pointwise_bwd_partials_cuda(x3, g, b, m, inv, w, dy)
+        dw, dcb, dg, db = cuda_pointwise.pointwise_bwd_finalize_cuda(*parts)
+        # pass A is one function (dW, dcb, dγ, dβ from x, W, dy), timed as
+        # such: its partials kernel and their finalize together
+        timed = {
+            "pointwise_fwd": (
+                lambda: cuda_pointwise.pointwise_fwd_cuda(x3, g, b, m, inv, w, cb),
+                lambda: PW.pointwise_fwd_plain(x3, g, b, m, inv, w, cb).to(w.dtype)),
+            "pointwise_bwd_reduce": (
+                lambda: cuda_pointwise.pointwise_bwd_reduce_cuda(x3, g, b, m, inv, w, dy),
+                lambda: PW.pointwise_bwd_reduce_plain(x3, g, b, m, inv, w, dy)),
+            "pointwise_bwd_finalize": (
+                lambda: cuda_pointwise.pointwise_bwd_finalize_cuda(*parts),
+                lambda: (parts[0].sum(0), parts[1].sum(0), parts[2].sum((0, 1)),
+                         parts[3].sum((0, 1)))),
+            "pointwise_bwd_dx": (
+                lambda: cuda_pointwise.pointwise_bwd_dx_cuda(x3, g, b, m, inv, w, dy, dg, db),
+                lambda: PW.pointwise_bwd_dx_plain(x3, g, b, m, inv, w, dy, dg, db).to(x3.dtype)),
+        }
+        R, stats = B * math.prod(spatial), nbytes(g, b, m, inv)
+        product = 2 * R * C * Co
+        # each input of the function read once, each output written once;
+        # bf16 products. The partials are scratch of this design, not work
+        # of the function: the finalize's share of pass A's bound is the
+        # writing of pass A's outputs
+        bounds = {
+            "pointwise_fwd": least_time(nbytes(x3, w, cb) + stats + R * Co * 2, product,
+                                        torch.bfloat16),
+            "pointwise_bwd_reduce": least_time(nbytes(x3, w, dy, dw, dcb, dg, db) + stats,
+                                               2 * product, torch.bfloat16),
+            "pointwise_bwd_finalize": least_time(nbytes(dw, dcb, dg, db), 0, torch.float32),
+            "pointwise_bwd_dx": least_time(nbytes(x3, w, dy, dg, db, x3) + stats, product,
+                                           torch.bfloat16),
+        }
+        shape = f"(B,C,Co)={(B, C, Co)} spatial {spatial} x {str(x3.dtype)[6:]} W bf16"
+        partials_ms = cuda_ms(
+            lambda: cuda_pointwise.pointwise_bwd_partials_cuda(x3, g, b, m, inv, w, dy),
+            calls=20, warmup=3)
+        for name, (kernel_fn, plain_fn) in timed.items():
+            k_ms = cuda_ms(kernel_fn, calls=20, warmup=3)
+            p_ms = cuda_ms(plain_fn, calls=20, warmup=3)
+            if i == K3_TIMED[0]:
+                out[name] = {"max_abs_err": worst[name], "ms": k_ms, "plain_ms": p_ms,
+                             **bounds[name], "library_ms": None}
+            what = ("pass A (partials + finalize)" if name == "pointwise_bwd_reduce" else name)
+            print(f"K3 {what} time {shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                  f"{bounds[name]['bound_ms']:.4g} ms ({bounds[name]['bound_by']}) "
+                  "(median of 20 calls, CUDA events)")
+        print(f"K3 pointwise_bwd_reduce's partials kernel alone {shape}: {partials_ms:.3f} ms "
+              "(median of 20 calls, CUDA events)")
+        if i == K3_TIMED[0]:
+            out["pointwise_bwd_reduce"]["partials_ms"] = partials_ms
+        block = fused_against_cudnn(args, spatial, bias)
+        print(f"K3 block bn1→relu→conv1 {shape}, bf16 autocast: fused (batch stats + kernels) "
+              f"fwd {block['fused_fwd']:.3f} ms, fwd+bwd {block['fused_fwd_bwd']:.3f} ms; "
+              f"unfused cuDNN fwd {block['unfused_fwd']:.3f} ms, fwd+bwd "
+              f"{block['unfused_fwd_bwd']:.3f} ms (median of 20 calls, CUDA events)")
+        if i == K3_TIMED[0]:
+            out["pointwise_fwd"]["block_ms"] = block
+        del args, parts, timed
+    return out
+
+
+def fused_against_cudnn(args, spatial, bias) -> dict:
+    """The block's bn1 → relu → conv1 under bf16 autocast, as the fused op
+    (batch statistics, then K3) and as the unfused modules (cuDNN BatchNorm
+    and convolution), forward and forward + backward, on the same input."""
+    x3, _, _, _, _, _, _, dy = args
+    B, C, S = x3.shape
+    Co = dy.shape[1]
+    two_d = len(spatial) == 2
+    bn = (torch.nn.BatchNorm2d if two_d else torch.nn.BatchNorm1d)(C).to(x3.device)
+    conv = (torch.nn.Conv2d if two_d else torch.nn.Conv1d)(C, Co, 1, bias=bias).to(x3.device)
+    x = x3.reshape(B, C, *spatial).detach().requires_grad_()
+    dy = dy.reshape(B, Co, *spatial)
+    leaves = [x, *bn.parameters(), *conv.parameters()]
+
+    def fused():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return PW.fused_bn_relu_pointwise(x, bn.weight, bn.bias,
+                                              PW.conv1x1_matrix(conv.weight, False), conv.bias,
+                                              bn.eps, torch.bfloat16)[0]
+
+    def unfused():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return conv(torch.relu(bn(x.float())))
+
+    times = {}
+    for name, fn in (("fused", fused), ("unfused", unfused)):
+        with torch.no_grad():
+            times[f"{name}_fwd"] = cuda_ms(fn, calls=20, warmup=3)
+        times[f"{name}_fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(fn(), leaves, dy),
+                                           calls=20, warmup=3)
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -414,11 +677,11 @@ def endpoint_timings(sess: InferenceSession, card_line: str) -> None:
 # ---------------------------------------------------------------------------
 
 def launch_counts() -> dict:
-    return {**cuda_fusion.LAUNCHES, **cuda_texthead.LAUNCHES}
+    return {**cuda_fusion.LAUNCHES, **cuda_texthead.LAUNCHES, **cuda_pointwise.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (cuda_fusion.LAUNCHES, cuda_texthead.LAUNCHES):
+    for counts in (cuda_fusion.LAUNCHES, cuda_texthead.LAUNCHES, cuda_pointwise.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -441,12 +704,13 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def drive_training(cfg, device, kernels=tuple(KERNELS), warmup: int = 3, steps: int = 10,
+def drive_training(cfg, device, kernels=K12, per_step=None, warmup: int = 3, steps: int = 10,
                    seed: int = 0) -> dict:
     """``steps`` + ``warmup`` train steps on one seeded batch, as a user
     calls ``make_train_step``. Checks every step's loss terms, that each of
-    ``kernels`` launched in every step, and at the end that parameters and
-    BN running statistics moved. Returns the step's p50 and the launches."""
+    ``kernels`` launched in every step (exactly ``per_step[name]`` times
+    where given), and at the end that parameters and BN running statistics
+    moved. Returns the step's p50 and the launches of the run."""
     state = create_train_state(cfg, device, seed=seed)
     train_step = make_train_step(cfg)
     batch = training_batch(cfg, cfg.batch_size, seed + 1, device)
@@ -461,6 +725,9 @@ def drive_training(cfg, device, kernels=tuple(KERNELS), warmup: int = 3, steps: 
         times.append((time.perf_counter() - t0) * 1e3)
         for name in kernels:
             check(launch_counts()[name] > counts[name], f"train step {i}: {name} did not launch")
+        for name, n in (per_step or {}).items():
+            got = launch_counts()[name] - counts[name]
+            check(got == n, f"train step {i}: {name} launched {got} times, not {n}")
         for name, v in loss_terms(metrics).items():
             check(bool(torch.isfinite(v)), f"train step {i}: {name} = {float(v)}")
         check(not bool(metrics["nan_in_latents"]), f"train step {i}: NaN in latents")
@@ -480,6 +747,24 @@ def drive_training(cfg, device, kernels=tuple(KERNELS), warmup: int = 3, steps: 
     return {"state": state, "step": train_step, "batch": batch, "metrics": metrics,
             "launches": launches, "p50_ms": p50, "samples_per_s": cfg.batch_size / p50 * 1e3,
             "params_moved": (len(moved), len(params))}
+
+
+def steps_in_turns(runs: dict, steps: int = 5) -> dict:
+    """Each run's step timed in turns on the same card (the first run, the
+    second, the second, the first; ``steps`` steps a turn, each ending in a
+    synchronize): the p50 per run, a comparison less exposed to drift
+    between the runs than their own p50s."""
+    first, second = runs
+    times = {first: [], second: []}
+    for path in (first, second, second, first):
+        run = runs[path]
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            metrics = run["step"](run["state"], run["batch"])
+            torch.cuda.synchronize()
+            times[path].append((time.perf_counter() - t0) * 1e3)
+            check(bool(torch.isfinite(metrics["total_loss"])), f"{path}: total_loss not finite")
+    return {path: statistics.median(t) for path, t in times.items()}
 
 
 def device_idle_share(fn, calls: int = 3) -> str:
@@ -540,7 +825,7 @@ def one_step_grads(cfg, sd, device, batch) -> tuple:
 KERNEL_ADJACENT = ("decoder_text.text_generator.generator.6.", ".feature_compressor.")
 
 
-def gpu_step_against_cpu(cfg, device, n: int = 8) -> dict:
+def gpu_step_against_cpu(cfg, device, kernels=K12, n: int = 8) -> dict:
     """One float32 train step through the kernels on the card against one
     through the plain versions on the CPU, same weights and batch.
 
@@ -561,7 +846,7 @@ def gpu_step_against_cpu(cfg, device, n: int = 8) -> dict:
     batch = training_batch(cfg, n, seed=14, device="cpu")
     before = launch_counts()
     got, g_gpu = one_step_grads(cfg, sd, device, batch)
-    check(all(launch_counts()[k] > before[k] for k in KERNELS),
+    check(all(launch_counts()[k] > before[k] for k in kernels),
           "GPU train step did not launch every kernel")
     ref, g_cpu = one_step_grads(cfg, sd, "cpu", batch)
     _, g64 = one_step_grads(cfg64, sd, "cpu", batch)
@@ -586,12 +871,29 @@ def gpu_step_against_cpu(cfg, device, n: int = 8) -> dict:
             adjacent = max(adjacent, err / scale)
         check(err <= 1e-3 * (scale + g_max), f"GPU vs CPU gradient {k}: max |Δ| {err:.3e} "
                                              f"(max|g| {scale:.3e}, model {g_max:.3e})")
-    print(f"GPU (kernels) vs CPU (plain) train step, float32, batch {n}, TF32 off: loss terms "
-          f"max rel |Δ| {rel:.3e} (bound 1e-4); gradients rel L2: GPU vs CPU "
+    knobs = "fused_text_head" + (", fused_pointwise" if cfg.fused_pointwise else "")
+    print(f"GPU (kernels) vs CPU (plain) train step ({knobs}), float32, batch {n}, TF32 off: "
+          f"loss terms max rel |Δ| {rel:.3e} (bound 1e-4); gradients rel L2: GPU vs CPU "
           f"{l2['gpu_vs_cpu']:.3e} (bound 1e-3), GPU vs float64 {l2['gpu_vs_f64']:.3e}, CPU "
           f"float32 vs float64 {l2['cpu_vs_f64']:.3e}; kernel-adjacent tensors max|Δ|/max|g| "
           f"{adjacent:.3e} (bound 1e-3)")
     return l2
+
+
+def kernel_entries(results: dict, runs: dict, serve_launches: int) -> list:
+    """The kernels line: each kernel with its launches on its own path (K1,
+    K2: the fused_text_head run; K3: the fused_pointwise run), those on
+    every path, and its measurements."""
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        path = "train" if name in K12 else "train_fused_pointwise"
+        by_path = {p: r["launches"][name] for p, r in runs.items() if r["launches"][name]}
+        if name == "poe_subsets_f32":
+            by_path = {"serve": serve_launches, **by_path}
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": runs[path]["launches"][name], **results[name],
+                        "launches_by_path": by_path})
+    return kernels
 
 
 # ---------------------------------------------------------------------------
@@ -616,7 +918,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     results = {"poe_subsets_f32": k1_against_plain(device),
                "poe_subsets_bwd_f32": k1_bwd_against_plain(device),
-               **k2_against_plain(device)}
+               **k2_against_plain(device), **k3_against_plain(device)}
 
     flagship = MopoeConfig.from_json(str(FLAGSHIP))
     sd = random_state_dict(flagship)
@@ -643,25 +945,31 @@ def main() -> int:
     # diverges within two steps on noise inputs (docs/STABILITY.md)
     train_cfg = flagship.replace(fused_text_head=True, compute_dtype="bfloat16",
                                  lr_warmup_steps=TRAIN_WARMUP_STEPS)
-    run = drive_training(train_cfg, device)
-    terms = {k: round(float(v), 4) for k, v in loss_terms(run["metrics"]).items()}
-    print(f"train slice (flagship, fused_text_head, batch {train_cfg.batch_size}, bf16): 13 "
-          f"steps ok; launches {run['launches']}; params moved {run['params_moved']}; "
-          f"last step {terms}, grad_norm {float(run['metrics']['grad_norm']):.4g}")
-    print(f"p50 train step (batch {train_cfg.batch_size}, bf16, fused_text_head, 10 steps after "
-          f"3 warm-up): {run['p50_ms']:.3f} ms, {run['samples_per_s']:.1f} samples/s "
-          f"[{card_line}]")
-    print(device_idle_share(lambda: run["step"](run["state"], run["batch"])))
+    runs = {}
+    for path, cfg, launched, per_step in (
+            ("train", train_cfg, K12, None),
+            ("train_fused_pointwise", train_cfg.replace(fused_pointwise=True), tuple(KERNELS),
+             dict.fromkeys(K3, K3_CALLS_PER_STEP))):
+        knobs = "fused_text_head" + (", fused_pointwise" if cfg.fused_pointwise else "")
+        run = runs[path] = drive_training(cfg, device, launched, per_step)
+        terms = {k: round(float(v), 4) for k, v in loss_terms(run["metrics"]).items()}
+        print(f"train slice (flagship, {knobs}, batch {cfg.batch_size}, bf16): 13 steps ok; "
+              f"launches {run['launches']}; params moved {run['params_moved']}; "
+              f"last step {terms}, grad_norm {float(run['metrics']['grad_norm']):.4g}")
+        print(f"p50 train step (batch {cfg.batch_size}, bf16, {knobs}, 10 steps after 3 "
+              f"warm-up): {run['p50_ms']:.3f} ms, {run['samples_per_s']:.1f} samples/s "
+              f"[{card_line}]")
+        print(device_idle_share(lambda: run["step"](run["state"], run["batch"])))
+    turns = steps_in_turns(runs)
+    print("p50 train step in turns (A B B A, 5 steps a turn, after the runs above): "
+          + ", ".join(f"{p} {t:.3f} ms" for p, t in turns.items()) + f" [{card_line}]")
+    for run in runs.values():
+        del run["state"], run["batch"], run["step"]
     gpu_step_against_cpu(flagship.replace(fused_text_head=True), device)
+    gpu_step_against_cpu(flagship.replace(fused_text_head=True, fused_pointwise=True), device,
+                         tuple(KERNELS))
 
-    kernels = []
-    for name, (source, replaces) in KERNELS.items():
-        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": run["launches"][name], **results[name]}
-        if name == "poe_subsets_f32":
-            entry["launches_by_path"] = {"serve": serve_launches, "train": run["launches"][name]}
-        kernels.append(entry)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_entries(results, runs, serve_launches)}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

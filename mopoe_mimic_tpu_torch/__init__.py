@@ -2,18 +2,21 @@
 
 The JAX package ``mopoe_mimic_tpu`` is the reference this package is held
 against. This package imports ``torch`` and numpy only: it never imports
-``jax`` and never imports a module of ``mopoe_mimic_tpu`` (whose package
-``__init__`` loads jax and flax). The one shared file, the stdlib-only
-``mopoe_mimic_tpu/config.py``, is loaded by path (``config.py`` here).
+``jax``, never imports a module of ``mopoe_mimic_tpu`` (whose package
+``__init__`` loads jax and flax) and reads none of its files. It runs from a
+tree without ``mopoe_mimic_tpu/``: ``config.py`` here is its own copy of the
+stdlib-only ``mopoe_mimic_tpu/config.py`` (same fields and defaults).
 
 Layout mirrors the JAX package:
 
-  * ``ops/``     fusion, KL divergences, log-probabilities, sampling and
-                 the fused text head (plain PyTorch), and the hand-written
-                 CUDA kernels beside them: the subset PoE forward and
-                 backward (``ops/cuda_fusion.py`` + ``csrc/poe_subsets.cu``)
-                 and the fused text head (``ops/cuda_texthead.py`` +
-                 ``csrc/texthead.cu``)
+  * ``ops/``     fusion, KL divergences, log-probabilities, sampling, the
+                 fused text head and the fused BN → ReLU → 1×1 conv (plain
+                 PyTorch), and the hand-written CUDA kernels beside them:
+                 the subset PoE forward and backward (``ops/cuda_fusion.py``
+                 + ``csrc/poe_subsets.cu``), the fused text head
+                 (``ops/cuda_texthead.py`` + ``csrc/texthead.cu``) and the
+                 fused BN → ReLU → 1×1 conv (``ops/cuda_pointwise.py`` +
+                 ``csrc/pointwise.cu``)
   * ``models/``  residual blocks, image and word-text networks, MMVae, and
                  the JAX → PyTorch weight converter
   * ``train/``   the objective, the train state and optimizer, the train

@@ -18,8 +18,10 @@ The subset PoE goes through the hand-written CUDA kernels (forward and
 backward) when ``cfg.use_pallas_fusion`` is set and the posteriors are on
 a CUDA device, and through the plain PyTorch version otherwise
 (mmvae.py:184-193 of the JAX package). The posteriors are cast to float32
-before fusion. Factorized (style) representations and the char text
-encoding are not ported yet.
+before fusion. ``cfg.fused_pointwise`` builds every residual block with the
+fused BN → ReLU → 1×1 conv (K3) for train mode (mmvae.py:83, 102, 119,
+134). Factorized (style) representations and the char text encoding are
+not ported yet.
 
 Layouts are PyTorch's: images NCHW, text ids [B, L], text output
 [B, L, vocab]. The session converts at its boundary.
@@ -63,14 +65,15 @@ class MMVae(nn.Module):
             suffix = MODULE_SUFFIX[m]
             if m == "text":
                 enc = EncoderText(cfg.DIM_text, cfg.class_dim, cfg.vocab_size,
-                                  cfg.len_sequence, cfg.bn_eps)
+                                  cfg.len_sequence, cfg.bn_eps, cfg.fused_pointwise)
                 dec = DecoderText(cfg.DIM_text, cfg.class_dim, cfg.num_features,
-                                  cfg.len_sequence, cfg.text_gen_lastlayer, cfg.bn_eps)
+                                  cfg.len_sequence, cfg.text_gen_lastlayer, cfg.bn_eps,
+                                  cfg.fused_pointwise)
             else:
                 enc = EncoderImg(cfg.DIM_img, cfg.class_dim, cfg.img_size,
-                                 cfg.image_channels, cfg.bn_eps)
+                                 cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise)
                 dec = DecoderImg(cfg.DIM_img, cfg.class_dim, cfg.img_size,
-                                 cfg.image_channels, cfg.bn_eps)
+                                 cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise)
             setattr(self, f"encoder_{suffix}", enc)
             setattr(self, f"decoder_{suffix}", dec)
 

@@ -14,6 +14,13 @@ BatchNorm runs in float32 whatever the autocast dtype (the JAX package's
 ``bn_compute_dtype="float32"``): its input is cast up (``at_least_f32``:
 a float64 model, the port's oracle runs, stays float64), and autocast then
 lowers only the convolutions.
+
+``fused_pointwise=True`` (``cfg.fused_pointwise``, resblocks.py:275-311 of
+the JAX package) computes ``bn1 → relu → conv1`` in train mode as one fused
+op on the same parameters (``ops/pointwise.py``: the CUDA kernels K3 on the
+card, the plain versions on the CPU) and advances ``bn1``'s running
+statistics as ``nn.BatchNorm`` would. Eval mode runs the modules. The
+parameter keys do not change.
 """
 
 from __future__ import annotations
@@ -21,12 +28,34 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from mopoe_mimic_tpu_torch.ops.pointwise import conv1x1_matrix, fused_bn_relu_pointwise
+
 A_SKIP, B_SKIP = 2.0, 0.3
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     """x in float32, or left in float64."""
     return x if x.dtype == torch.float64 else x.float()
+
+
+def compute_dtype_of(x: torch.Tensor) -> torch.dtype:
+    """The dtype autocast would run a conv on x in: the autocast dtype where
+    autocast is on for x's device, else x's own."""
+    if torch.is_autocast_enabled(x.device.type):
+        return torch.get_autocast_dtype(x.device.type)
+    return x.dtype
+
+
+@torch.no_grad()
+def update_running_stats(bn: nn.modules.batchnorm._BatchNorm, mean: torch.Tensor,
+                         var: torch.Tensor, n: int) -> None:
+    """``nn.BatchNorm``'s train-mode update from the batch statistics over
+    n elements: momentum, the running variance unbiased by n/(n − 1)."""
+    m = bn.momentum
+    bn.running_mean.mul_(1.0 - m).add_(mean.to(bn.running_mean.dtype), alpha=m)
+    bn.running_var.mul_(1.0 - m).add_((var * (n / max(n - 1, 1))).to(bn.running_var.dtype),
+                                      alpha=m)
+    bn.num_batches_tracked.add_(1)
 
 
 class _ResidualBlock(nn.Module):
@@ -46,8 +75,10 @@ class _ResidualBlock(nn.Module):
         b: float = B_SKIP,
         dropout: float = 0.5,
         bn_eps: float = 1e-5,
+        fused_pointwise: bool = False,
     ):
         super().__init__()
+        self.fused_pointwise, self.transpose = fused_pointwise, transpose
         bn = nn.BatchNorm2d if spatial == 2 else nn.BatchNorm1d
         if transpose:
             conv = nn.ConvTranspose2d if spatial == 2 else nn.ConvTranspose1d
@@ -73,9 +104,18 @@ class _ResidualBlock(nn.Module):
         self._shortcut_name = "upsample" if transpose else "downsample"
         setattr(self, self._shortcut_name, shortcut)
 
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """bn1 → relu → conv1: fused in train mode under ``fused_pointwise``."""
+        if not (self.fused_pointwise and self.training):
+            return self.conv1(torch.relu(self.bn1(at_least_f32(x))))
+        y, mean, var = fused_bn_relu_pointwise(
+            x, self.bn1.weight, self.bn1.bias, conv1x1_matrix(self.conv1.weight, self.transpose),
+            self.conv1.bias, self.bn1.eps, compute_dtype_of(x))
+        update_running_stats(self.bn1, mean, var, x.numel() // x.shape[1])
+        return y
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(torch.relu(self.bn1(at_least_f32(x))))
-        h = self.dropout1(h)
+        h = self.dropout1(self._head(x))
         h = self.conv2(torch.relu(self.bn2(at_least_f32(h))))
         h = self.dropout2(h)
         conv, bn = getattr(self, self._shortcut_name)

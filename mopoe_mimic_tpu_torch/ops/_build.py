@@ -119,6 +119,15 @@ def load_library() -> ctypes.CDLL:
         "texthead_bwd_dh": [ptr] * 7 + [i32] * 4 + [ptr],
         # h, W, b, targets, lse, g, dW, db, R, C, V, dtype, stream
         "texthead_bwd_dw": [ptr] * 8 + [i32] * 4 + [ptr],
+        # x, gamma, beta, mean, inv, W, cb, y, B, C, Co, S, x_dtype, w_dtype, stream
+        "pointwise_fwd": [ptr] * 8 + [i32] * 6 + [ptr],
+        # x, gamma, beta, mean, inv, W, dy, part_dw, part_dcb, part_dg, part_db,
+        # B, C, Co, S, chunk_rows, x_dtype, w_dtype, stream
+        "pointwise_bwd_reduce": [ptr] * 11 + [i32] * 7 + [ptr],
+        # part_dw, part_dcb, part_dg, part_db, dW, dcb, dg, db, C, Co, chunks, o_tiles, stream
+        "pointwise_bwd_finalize": [ptr] * 8 + [i32] * 4 + [ptr],
+        # x, gamma, beta, mean, inv, W, dy, dg, db, dx, B, C, Co, S, x_dtype, w_dtype, stream
+        "pointwise_bwd_dx": [ptr] * 10 + [i32] * 6 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -13,9 +13,14 @@ full forward that advances the BatchNorm running statistics in call order
 ``cfg.fused_text_head`` sends the text log-likelihood through the fused
 vocab head (``ops/texthead.py``: the CUDA kernels K2 on the card, the
 plain pair on the CPU) for word text at length 128 with a softmax last
-layer. ``compute_dtype="bfloat16"`` runs the step under
+layer. ``cfg.fused_pointwise`` runs every residual block's opening
+BN → ReLU → 1×1 conv as one fused op in train mode (``ops/pointwise.py``:
+the CUDA kernels K3 on the card, the plain versions on the CPU), built
+into the model (``models/mmvae.py``); the eval step runs the modules.
+``compute_dtype="bfloat16"`` runs the step under
 ``torch.autocast(bfloat16)``; BatchNorm stays float32
-(``models/resblocks.py``), the fused head's inputs are cast to bfloat16.
+(``models/resblocks.py``), the fused head's inputs and K3's products take
+bfloat16.
 """
 
 from __future__ import annotations

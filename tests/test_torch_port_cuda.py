@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on an
 NVIDIA GPU: K1 (subset PoE) forward and backward, K2 (fused text head)
-forward and backward.
+forward and backward, K3 (fused BN → ReLU → 1×1 conv) forward and both
+backward passes.
 
 Needs the card: marked ``cuda`` and skipped where CUDA is unavailable.
 This file imports neither jax nor the JAX package, so it also runs where
@@ -15,15 +16,22 @@ kernel). K2 in float32 with TF32 off: lp rtol 1e-5 atol 1e-5, gradients
 rtol 1e-4 atol 1e-5 (tests/test_pallas_texthead.py's bounds), against the
 plain pair accumulated in float64; in bfloat16 against the plain pair fed
 the same bfloat16 inputs: lp |Δ| ≤ 1e-3·max(1, |ref|), gradients
-|Δ| ≤ 2e-2·max|ref|.
+|Δ| ≤ 2e-2·max|ref|. K3 in float32 with TF32 off against the plain
+versions accumulated in float64: y and dx rtol 1e-5, dW, dcb, dγ, dβ rtol
+1e-4, all atol 1e-5·max|ref|; in bfloat16 against the plain versions on the
+same inputs: y |Δ| ≤ 1e-2·max|ref|, gradients |Δ| ≤ 2e-2·max|ref|.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mopoe_mimic_tpu_torch.ops import cuda_fusion, cuda_texthead
+import chip_smoke
+
+from mopoe_mimic_tpu_torch.models.resblocks import ResidualBlock2dConv
+from mopoe_mimic_tpu_torch.ops import cuda_fusion, cuda_pointwise, cuda_texthead
 from mopoe_mimic_tpu_torch.ops import fusion as F
+from mopoe_mimic_tpu_torch.ops import pointwise as PW
 from mopoe_mimic_tpu_torch.ops import texthead as TH
 
 pytestmark = pytest.mark.cuda
@@ -162,3 +170,91 @@ def test_texthead_refuses_what_it_does_not_take(device):
         cuda_texthead.texthead_cuda(wide, torch.zeros((129, 40), device=device), b, t)
     with pytest.raises(ValueError, match="different devices"):
         TH.fused_text_logprob(h.reshape(2, 8, 16), k.cpu(), b, t.reshape(2, 8))
+
+
+def _k3_case(device, B, C, Co, S, x_dtype, w_dtype, transpose=False, bias=True, seed=0):
+    return chip_smoke.k3_case(device, B, C, Co, (S,), bias, transpose, x_dtype, w_dtype, seed)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("B,C,Co,S", [(3, 64, 64, 25), (2, 48, 40, 7), (256, 320, 320, 1),
+                                      (4, 320, 320, 16), (8, 256, 256, 64), (5, 3, 130, 33)])
+def test_pointwise_kernels_match_plain_f32(device, B, C, Co, S, transpose):
+    args = _k3_case(device, B, C, Co, S, torch.float32, torch.float32, transpose, seed=B + C + S)
+    got = chip_smoke.k3_run(args)
+    ref = chip_smoke.k3_plain(args, torch.float64)
+    torch.cuda.synchronize()
+    for a, r, rtol in zip(got, ref, (1e-5, 1e-5, 1e-4, 1e-4, 1e-4, 1e-4)):
+        torch.testing.assert_close(a.double(), r, rtol=rtol, atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,C,Co,S", [(256, 64, 64, 1024), (256, 320, 320, 16)])
+def test_pointwise_kernels_match_plain_bf16(device, B, C, Co, S, x_dtype):
+    args = _k3_case(device, B, C, Co, S, x_dtype, torch.bfloat16, seed=S)
+    got = chip_smoke.k3_run(args)
+    ref = chip_smoke.k3_plain(args)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == x_dtype
+    for a, r, frac in zip(got, ref, (1e-2,) + (2e-2,) * 5):
+        err = (a.float() - r.float()).abs().max()
+        assert float(err) <= frac * float(r.float().abs().max())
+
+
+def test_pointwise_backward_is_deterministic(device):
+    """No atomics: pass A's sums have a fixed order."""
+    args = _k3_case(device, 64, 128, 128, 256, torch.bfloat16, torch.bfloat16, seed=1)
+    first = chip_smoke.k3_run(args)
+    second = chip_smoke.k3_run(args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_fused_block_on_cuda_launches_k3_and_matches_the_cpu(device):
+    """A fused block on CUDA tensors goes through the kernels (never the
+    plain version) and gives the CPU block's outputs, running statistics and
+    gradients (float32, TF32 off)."""
+    torch.manual_seed(0)
+    cpu = ResidualBlock2dConv(32, 64, fused_pointwise=True)
+    gpu = ResidualBlock2dConv(32, 64, fused_pointwise=True).to(device)
+    gpu.load_state_dict(cpu.state_dict())
+    for mod in (cpu, gpu):
+        mod.dropout1.p = mod.dropout2.p = 0.0
+    x = torch.randn(8, 32, 16, 16)
+    before = dict(cuda_pointwise.LAUNCHES)
+    outs = []
+    for mod, dev in ((cpu, "cpu"), (gpu, device)):
+        xi = x.to(dev).requires_grad_()
+        y = mod(xi)
+        grads = torch.autograd.grad(torch.tanh(y).sum(), [xi, *mod.parameters()])
+        outs.append((y, grads, mod.bn1.running_mean, mod.bn1.running_var))
+    assert all(cuda_pointwise.LAUNCHES[n] == before[n] + 1 for n in before)
+    (y_c, g_c, m_c, v_c), (y_g, g_g, m_g, v_g) = outs
+    torch.testing.assert_close(y_g.cpu(), y_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(m_g.cpu(), m_c, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(v_g.cpu(), v_c, rtol=1e-5, atol=1e-6)
+    # a shortcut bias in front of a train-mode BatchNorm has a zero gradient in
+    # exact arithmetic: rounding noise on both sides, held to the model's scale
+    g_max = max(float(r.abs().max()) for r in g_c)
+    for a, r in zip(g_g, g_c):
+        torch.testing.assert_close(a.cpu(), r, rtol=1e-3,
+                                   atol=1e-3 * float(r.abs().max()) + 1e-5 * g_max)
+
+
+def test_pointwise_refuses_what_it_does_not_take(device):
+    x3, g, b, m, inv, w, cb, _ = _k3_case(device, 2, 16, 16, 8, torch.float32, torch.float32)
+    with pytest.raises(TypeError):
+        cuda_pointwise.pointwise_cuda(x3.double(), g, b, m, inv, w, cb)
+    with pytest.raises(TypeError):
+        cuda_pointwise.pointwise_cuda(x3, g.double(), b, m, inv, w, cb)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_pointwise.pointwise_cuda(x3.transpose(1, 2).contiguous().transpose(1, 2), g, b, m,
+                                      inv, w, cb)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        cuda_pointwise.pointwise_cuda(x3.cpu(), g, b, m, inv, w, cb)
+    with pytest.raises(ValueError, match="channels"):
+        wide = torch.zeros((2, 4096, 8), device=device)
+        z = torch.zeros(4096, device=device)
+        cuda_pointwise.pointwise_cuda(wide, z, z, z, z, torch.zeros((4096, 4), device=device),
+                                      torch.zeros(4, device=device))
+    with pytest.raises(ValueError, match="different devices"):
+        PW.fused_bn_relu_pointwise(x3, g, b, w.cpu(), None, 1e-5, torch.float32)
