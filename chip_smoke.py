@@ -9,19 +9,28 @@ any failure of which exits non-zero:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels from ``mopoe_mimic_tpu_torch/csrc`` into
-     ``build/kernels/``, one nvcc per source, all at once;
+     ``build/kernels/``, one nvcc per source, all at once; for K2's
+     tensor-core kernels (bfloat16 ``texthead_bwd_dh``, ``texthead_bwd_dw``)
+     ptxas's registers and spills and the count of HMMA/HGMMA instructions
+     in their SASS (``cuobjdump -sass``), which must not be 0;
   3. K1 against its plain PyTorch version on the card, M ∈ {1, 2, 3},
      B ∈ {1, 5, 8, 32, 128, 256}, D = 64, with and without the prior
      expert: max |Δ| ≤ 1e-6·max(1, |ref|); then both timed at B = 128, 256;
      K1's backward against the closed-form plain backward and against
      autograd of the plain forward, M ∈ {1, 2, 3}, B ∈ {1, 5, 256}, prior
      both ways: |Δ| ≤ 1e-5·max(1, |ref|); timed at B = 256;
-     K2 (forward, dh, dW/db) against the plain pair: (B, L, C, V) =
-     (3, 17, 10, 37), (4, 128, 64, 3517) and the flagship
-     (256, 128, 64, 3517) in float32 with TF32 off (lp rtol 1e-5 atol
-     1e-5; dh, dW, db rtol 1e-4 atol 1e-5; the plain pair accumulated in
-     float64), and the flagship in bfloat16 (lp |Δ| ≤ 1e-3·max(1, |ref|),
-     each gradient |Δ| ≤ 2e-2·max|ref|); each kernel timed at the flagship;
+     K2 (forward, dh, dW/db: in bfloat16 dW as row-split partials and their
+     finalize) against the plain pair: (B, L, C, V) = (3, 17, 10, 37),
+     (4, 128, 64, 3517) and the flagship (256, 128, 64, 3517) in float32
+     with TF32 off (lp rtol 1e-5 atol 1e-5; dh, dW, db rtol 1e-4 atol
+     1e-5; the plain pair accumulated in float64), and (3, 17, 10, 37),
+     (3, 32, 24, 301), (2, 64, 128, 300) and the flagship in bfloat16 (lp
+     |Δ| ≤ 1e-3·max(1, |ref|), each gradient |Δ| ≤ 2e-2·max|ref|), every
+     case run twice and bitwise equal; each kernel timed at the flagship
+     (dW with its finalize, and each alone), and the head as the model
+     runs it, fused (K2) and unfused (bf16 autocast conv_out →
+     log_softmax → target gather, PyTorch calls), forward and forward +
+     backward;
      K3 (forward, pass A's partials and their finalize, pass B) against the
      plain versions at the flagship's block shapes (B, C, Co, spatial) =
      (3, 64, 64, 5×5) with a conv bias, (256, 64, 64, 64×64) (the largest),
@@ -53,12 +62,14 @@ any failure of which exits non-zero:
      docs/STABILITY.md), weights from seed 0 and a seeded batch;
      3 warm-up and 10 timed steps. Every loss term finite, parameters and
      BN running statistics changed, grad_norm finite and > 0, and K1
-     forward, K1 backward and K2's three kernels launched in every step;
-     the step's p50 and samples/s, then a profile of 3 steps (device idle
-     share); then the same run with ``fused_pointwise=True`` as well, with
-     each of K3's four kernels launched exactly 32 times per step (one per
-     residual block), its p50, samples/s and profile beside the first; then
-     both steps timed in turns (A B B A, 5 steps a turn);
+     forward, K1 backward launched in every step and K2's four kernels
+     exactly once; the step's p50 and samples/s, then a profile of 3 steps
+     (device idle share, device time by kernel and the port's kernels');
+     then the same run with ``fused_pointwise=True`` as well, with each of
+     K3's four kernels launched exactly 32 times per step (one per residual
+     block), its p50, samples/s and profile beside the first; then both
+     steps timed in turns (A B B A, 5 steps a turn), and Σ of K3's bounds
+     over one step's 32 blocks, each from its launch's inputs;
   8. one train step on the GPU (kernels) against one on the CPU (plain
      versions): flagship width, batch 8, float32, TF32 off, dropout 0,
      eps = 0, same weights: every loss term within rtol 1e-4; the gradients
@@ -80,6 +91,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -110,6 +122,7 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
     "texthead_fwd": (K2_SOURCE, "mopoe_mimic_tpu/ops/pallas_texthead.py:72"),
     "texthead_bwd_dh": (K2_SOURCE, "mopoe_mimic_tpu/ops/pallas_texthead.py:88"),
     "texthead_bwd_dw": (K2_SOURCE, "mopoe_mimic_tpu/ops/pallas_texthead.py:88"),
+    "texthead_bwd_dw_finalize": (K2_SOURCE, "mopoe_mimic_tpu/ops/pallas_texthead.py:88"),
     "pointwise_fwd": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:81"),
     "pointwise_bwd_reduce": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:88"),
     "pointwise_bwd_finalize": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:88"),
@@ -118,6 +131,12 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
 K3 = tuple(name for name, (source, _) in KERNELS.items() if source == K3_SOURCE)
 K12 = tuple(name for name in KERNELS if name not in K3)  # the fused_text_head run's kernels
 K3_CALLS_PER_STEP = 32  # residual blocks of a joint_elbo flagship step
+K2_PER_STEP = {"texthead_fwd": 1, "texthead_bwd_dh": 1, "texthead_bwd_dw": 1,
+               "texthead_bwd_dw_finalize": 1}  # launches per bf16 train step
+# bfloat16 only: float32 dW has no row splits to finalize
+BF16_ONLY = ("texthead_bwd_dw_finalize",)
+# K2's tensor-core kernels (bfloat16), by the name of their __global__ function
+TENSOR_CORE_KERNELS = ("texthead_bwd_dh_tc", "texthead_bwd_dw_tc")
 NAMES = ("PA", "Lateral", "text")
 FLAGSHIP_HEAD = (256, 128, 64, 3517)  # K2 at the flagship: (B, L, C, V)
 TRAIN_WARMUP_STEPS = 300  # lr_warmup_steps of the training phase
@@ -160,6 +179,56 @@ def card() -> str:
         capture_output=True, text=True, timeout=60)
     check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
     return proc.stdout.strip()
+
+
+def kernel_resources(lib_path: str) -> dict:
+    """Phase 2's evidence for K2's tensor-core kernels: ptxas's registers,
+    spill bytes and stack frame for each of their instantiations (the
+    build's ``-Xptxas -v`` report) and the count of tensor-core
+    instructions (HMMA or HGMMA) in each one's SASS (``cuobjdump -sass``
+    of the built library). Fails if a kernel has none."""
+    found, current = {}, None
+    for line in _build.build_log_path().read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            current = entry.group(1)
+            continue
+        if current is None or not any(k in current for k in TENSOR_CORE_KERNELS):
+            continue
+        info = found.setdefault(current, {})
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            info.update(stack_bytes=int(spill.group(1)), spill_store_bytes=int(spill.group(2)),
+                        spill_load_bytes=int(spill.group(3)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            info["registers"] = int(regs.group(1))
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr.strip()[-2000:]}")
+    current = None
+    for line in proc.stdout.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            current = fn.group(1) if fn.group(1) in found else None
+        elif current and re.search(r"\bHG?MMA\b", line):
+            found[current]["tensor_core_instructions"] = (
+                found[current].get("tensor_core_instructions", 0) + 1)
+    by_kernel = {}
+    for name in TENSOR_CORE_KERNELS:
+        mine = {m: info for m, info in found.items() if name in m}
+        check(bool(mine), f"{name}: not in the build's ptxas report")
+        for mangled, info in mine.items():
+            check(info.get("tensor_core_instructions", 0) > 0,
+                  f"{mangled}: no HMMA/HGMMA instruction in its SASS")
+            print(f"sass {mangled}: {info.get('tensor_core_instructions', 0)} HMMA/HGMMA, "
+                  f"{info.get('registers')} registers, spills {info.get('spill_store_bytes')} "
+                  f"B stored / {info.get('spill_load_bytes')} B loaded, stack "
+                  f"{info.get('stack_bytes')} B")
+        by_kernel[name] = mine
+    return by_kernel
 
 
 # ---------------------------------------------------------------------------
@@ -283,24 +352,40 @@ def k2_case(device, B, L, C, V, dtype, seed):
             t(rng.normal(size=(B * L,))))
 
 
-def k2_against_plain(device: torch.device) -> dict:
-    """K2's three kernels against the plain pair on the same inputs: float32
-    at three shapes with TF32 off, bfloat16 at the flagship; then each
-    kernel timed against its plain version at the flagship."""
+K2_CASES = (  # (B, L, C, V), dtype
+    ((3, 17, 10, 37), torch.float32), ((4, 128, 64, 3517), torch.float32),
+    (FLAGSHIP_HEAD, torch.float32),
+    ((3, 17, 10, 37), torch.bfloat16),    # ragged rows, vocabulary and channels
+    ((3, 32, 24, 301), torch.bfloat16),
+    ((2, 64, 128, 300), torch.bfloat16),  # C = 128: the wide instantiations
+    (FLAGSHIP_HEAD, torch.bfloat16),
+)
+
+
+def k2_run(h, k, b, t, g):
+    """K2's kernels: (lp, lse) forward, then dh, dW, db from that lse."""
+    lp, lse = cuda_texthead.texthead_fwd_cuda(h, k, b, t)
+    dh = cuda_texthead.texthead_bwd_dh_cuda(h, k, b, t, lse, g)
+    return (lp, lse, dh, *cuda_texthead.texthead_bwd_dw_cuda(h, k, b, t, lse, g))
+
+
+def k2_against_plain(device: torch.device, card_line: str) -> dict:
+    """K2's kernels against the plain pair on the same inputs (K2_CASES),
+    each case run twice and required bitwise equal; then each kernel timed
+    against its plain version at the flagship, and the fused head against
+    the unfused composition."""
     def close(got, ref, rtol, atol, what):
         err = (got.double() - ref.double()).abs()
         check(bool((err <= atol + rtol * ref.double().abs()).all()),
               f"K2 {what}: max |Δ| {err.max().item():.3e} (max|ref| {ref.abs().max().item():.3e})")
         return err.max().item()
 
-    worst = {"texthead_fwd": 0.0, "texthead_bwd_dh": 0.0, "texthead_bwd_dw": 0.0}
-    cases = [((3, 17, 10, 37), torch.float32), ((4, 128, 64, 3517), torch.float32),
-             (FLAGSHIP_HEAD, torch.float32), (FLAGSHIP_HEAD, torch.bfloat16)]
-    for i, (shape, dtype) in enumerate(cases):
+    worst = dict.fromkeys(("texthead_fwd", "texthead_bwd_dh", "texthead_bwd_dw"), 0.0)
+    for i, (shape, dtype) in enumerate(K2_CASES):
         h, k, b, t, g = k2_case(device, *shape, dtype, seed=20 + i)
-        lp, lse = cuda_texthead.texthead_fwd_cuda(h, k, b, t)
-        dh = cuda_texthead.texthead_bwd_dh_cuda(h, k, b, t, lse, g)
-        dw, db = cuda_texthead.texthead_bwd_dw_cuda(h, k, b, t, lse, g)
+        got = k2_run(h, k, b, t, g)
+        again = k2_run(h, k, b, t, g)
+        lp, lse, dh, dw, db = got
         # float32: the plain pair accumulated in float64. At the flagship a
         # float32 GEMM over R = 32768 rows is itself ~4e-5 off in dW, more
         # than the kernel (which sums row chunks with Kahan addition)
@@ -309,6 +394,8 @@ def k2_against_plain(device: torch.device) -> dict:
         r_dh, r_dw, r_db = TH.texthead_bwd_plain(h, k, b, t, r_lse, g, acc)
         torch.cuda.synchronize()
         tag = f"{shape} {str(dtype).split('.')[-1]}"
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"K2 {tag}: two runs on the same inputs differ")
         if dtype == torch.float32:
             fwd = [close(x, r, 1e-5, 1e-5, f"{n} {tag}") for x, r, n in
                    ((lp, r_lp, "lp"), (lse, r_lse, "lse"))]
@@ -325,15 +412,21 @@ def k2_against_plain(device: torch.device) -> dict:
         worst["texthead_bwd_dh"] = max(worst["texthead_bwd_dh"], grads[0])
         worst["texthead_bwd_dw"] = max(worst["texthead_bwd_dw"], grads[1], grads[2])
         print(f"K2 vs plain {tag}: max |Δ| lp/lse {max(fwd):.3e}, dh {grads[0]:.3e}, "
-              f"dW {grads[1]:.3e}, db {grads[2]:.3e}")
+              f"dW {grads[1]:.3e}, db {grads[2]:.3e}; two runs bitwise equal")
+        del got, again
 
     h, k, b, t, g = k2_case(device, *FLAGSHIP_HEAD, torch.bfloat16, seed=30)
     _, lse = cuda_texthead.texthead_fwd_cuda(h, k, b, t)
+    parts = cuda_texthead.texthead_bwd_dw_partials_cuda(h, k, b, t, lse, g)
+    dw, db = cuda_texthead.texthead_bwd_dw_finalize_cuda(*parts)
 
     def plain_dw():
         dlog = TH.texthead_dlog_plain(h, k, b, t, lse, g)
         return h.float().t() @ dlog, dlog.sum(0)
 
+    # texthead_bwd_dw is one function (dW, db from h, W, b, t, lse, g), run
+    # as two kernels in bfloat16: timed and bounded as one, partials and
+    # finalize together; the finalize also alone
     timed = {
         "texthead_fwd": (lambda: cuda_texthead.texthead_fwd_cuda(h, k, b, t),
                          lambda: TH.texthead_fwd_plain(h, k, b, t)),
@@ -342,27 +435,85 @@ def k2_against_plain(device: torch.device) -> dict:
                                      @ k.float().t()).to(h.dtype)),
         "texthead_bwd_dw": (lambda: cuda_texthead.texthead_bwd_dw_cuda(h, k, b, t, lse, g),
                             plain_dw),
+        "texthead_bwd_dw_finalize": (
+            lambda: cuda_texthead.texthead_bwd_dw_finalize_cuda(*parts),
+            lambda: (parts[0].sum(0), parts[1].sum(0))),
     }
     # the products: logits (2·R·C·V) in the forward; logits again and one
-    # more product in each backward kernel; bf16 operands on tensor cores
+    # more product in each backward kernel; bf16 operands on tensor cores.
+    # The partials are scratch of this design and count in no bound: the
+    # finalize's own bound is the writing of dW and db
     R, C, V = h.shape[0], h.shape[1], k.shape[1]
     product = 2 * R * C * V
     bounds = {
         "texthead_fwd": least_time(nbytes(h, k, b, t) + 2 * R * 4, product, torch.bfloat16),
         "texthead_bwd_dh": least_time(nbytes(h, k, b, t, lse, g, h), 2 * product,
                                       torch.bfloat16),
-        "texthead_bwd_dw": least_time(nbytes(h, k, b, t, lse, g) + (C * V + V) * 4,
-                                      2 * product, torch.bfloat16),
+        "texthead_bwd_dw": least_time(nbytes(h, k, b, t, lse, g, dw, db), 2 * product,
+                                      torch.bfloat16),
+        "texthead_bwd_dw_finalize": least_time(nbytes(dw, db), 0, torch.float32),
     }
     out = {}
     for name, (kernel_fn, plain_fn) in timed.items():
         k_ms = cuda_ms(kernel_fn, calls=20, warmup=3)
         p_ms = cuda_ms(plain_fn, calls=20, warmup=3)
-        out[name] = {"max_abs_err": worst[name], "ms": k_ms, "plain_ms": p_ms, **bounds[name],
-                     "library_ms": None}
-        print(f"K2 {name} time (B,L,C,V)={FLAGSHIP_HEAD} bf16: kernel {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms (median of 20 calls, CUDA events)")
+        out[name] = {"max_abs_err": worst.get(name, worst["texthead_bwd_dw"]), "ms": k_ms,
+                     "plain_ms": p_ms, **bounds[name], "library_ms": None}
+        print(f"K2 {name} time (B,L,C,V)={FLAGSHIP_HEAD} bf16: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {bounds[name]['bound_ms']:.4g} ms "
+              f"({bounds[name]['bound_by']}) (median of 20 calls, CUDA events) [{card_line}]")
+    partials_ms = cuda_ms(
+        lambda: cuda_texthead.texthead_bwd_dw_partials_cuda(h, k, b, t, lse, g),
+        calls=20, warmup=3)
+    out["texthead_bwd_dw"]["partials_ms"] = partials_ms
+    out["texthead_bwd_dw"]["splits"] = parts[0].shape[0]
+    print(f"K2 texthead_bwd_dw's partials kernel alone: {partials_ms:.4f} ms "
+          f"({parts[0].shape[0]} row splits; median of 20 calls, CUDA events)")
+    head = head_against_unfused(h, k, b, t, g)
+    out["texthead_fwd"]["head_ms"] = head
+    print(f"K2 head (B,L,C,V)={FLAGSHIP_HEAD} bf16: fused (K2's kernels) fwd "
+          f"{head['fused_fwd']:.4f} ms, fwd+bwd {head['fused_fwd_bwd']:.4f} ms; unfused "
+          f"composition (autocast conv_out → log_softmax → gather, PyTorch calls) fwd "
+          f"{head['unfused_fwd']:.4f} ms, fwd+bwd {head['unfused_fwd_bwd']:.4f} ms "
+          f"(median of 20 calls, CUDA events) [{card_line}]")
     return out
+
+
+def head_against_unfused(h, k, b, t, g) -> dict:
+    """The text head as the model runs it, on the same h: fused (K2, through
+    ``fused_text_logprob``) and unfused (the decoder's ``conv_out``, a 1×1
+    Conv1d, under bf16 autocast, then ``log_softmax`` in float32 and the
+    target's entry: ``models/text_networks.py`` and ``train/losses.py``),
+    forward and forward + backward into h, W and b."""
+    B, L = FLAGSHIP_HEAD[:2]
+    C, V = k.shape
+    conv = torch.nn.Conv1d(C, V, 1).to(h.device)
+    with torch.no_grad():
+        conv.weight.copy_(k.float().t().unsqueeze(-1))
+        conv.bias.copy_(b)
+    feats = h.reshape(B, L, C).detach().requires_grad_()  # [B, L, C] as the prehead gives it
+    kernel = conv.weight[:, :, 0].t().detach().requires_grad_()
+    bias = b.detach().requires_grad_()
+    targets, w = t.reshape(B, L), g.reshape(B, L)
+
+    def fused():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return TH.fused_text_logprob(feats, kernel, bias, targets)
+
+    def unfused():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            logits = conv(feats.transpose(1, 2)).transpose(1, 2)  # [B, L, V]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return torch.gather(logp, -1, targets.long().unsqueeze(-1)).squeeze(-1)
+
+    times = {}
+    for name, fn, leaves in (("fused", fused, [feats, kernel, bias]),
+                             ("unfused", unfused, [feats, *conv.parameters()])):
+        with torch.no_grad():
+            times[f"{name}_fwd"] = cuda_ms(fn, calls=20, warmup=3)
+        times[f"{name}_fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad((fn() * w).sum(), leaves),
+                                           calls=20, warmup=3)
+    return times
 
 
 # (B, C, Co, spatial, conv bias, x in bfloat16 in the bf16 check): blocks of
@@ -391,6 +542,64 @@ def k3_case(device, B, C, Co, spatial, bias, transpose, x_dtype, w_dtype, seed):
     cb = 0.1 * rn(Co) if bias else torch.zeros(Co, device=device)
     return (x3, 1.0 + 0.2 * rn(C), 0.1 * rn(C), mean, PW.inv_std(var, 1e-5), w, cb,
             rn(B, Co, S).to(w_dtype))
+
+
+def k3_bounds(x3, w, dy) -> dict:
+    """least_time of K3's kernels on a block's inputs x3 [B, C, S], W
+    [C, Co] and dy [B, Co, S]: each input of the function read once (the
+    four per-channel statistics and the conv bias in float32), each output
+    written once (y in W's dtype, dx in x's, dW, dcb, dγ, dβ in float32);
+    the products at the peak of W's dtype. The partials of pass A are
+    scratch of this design, not work of the function: the finalize's share
+    of pass A's bound is the writing of pass A's outputs."""
+    B, C, S = x3.shape
+    Co = w.shape[1]
+    R, stats, grads = B * S, 4 * C * 4, (C * Co + Co + 2 * C) * 4
+    product = 2 * R * C * Co
+    return {
+        "pointwise_fwd": least_time(nbytes(x3, w) + Co * 4 + stats + R * Co * w.element_size(),
+                                    product, w.dtype),
+        "pointwise_bwd_reduce": least_time(nbytes(x3, w, dy) + grads + stats, 2 * product,
+                                           w.dtype),
+        "pointwise_bwd_finalize": least_time(grads, 0, torch.float32),
+        "pointwise_bwd_dx": least_time(2 * nbytes(x3) + nbytes(w, dy) + 2 * C * 4 + stats,
+                                       product, w.dtype),
+    }
+
+
+def k3_step_bounds(run: dict) -> dict:
+    """Σ over one train step of K3's bounds (``k3_bounds`` on the inputs
+    each launch is given), from one more step of ``run`` with the three
+    launchers wrapped; and the launches counted."""
+    totals, calls = dict.fromkeys(K3, 0.0), dict.fromkeys(K3, 0)
+    originals = {n: getattr(cuda_pointwise, n) for n in
+                 ("pointwise_fwd_cuda", "pointwise_bwd_reduce_cuda", "pointwise_bwd_dx_cuda")}
+
+    def wrap(fn_name, kernels):
+        def recorded(x3, gamma, beta, mean, inv, w, *rest):
+            out = originals[fn_name](x3, gamma, beta, mean, inv, w, *rest)
+            dy = rest[0] if fn_name != "pointwise_fwd_cuda" else out
+            bounds = k3_bounds(x3, w, dy)
+            for name in kernels:
+                totals[name] += bounds[name]["bound_ms"]
+                calls[name] += 1
+            return out
+        return recorded
+
+    try:
+        cuda_pointwise.pointwise_fwd_cuda = wrap("pointwise_fwd_cuda", ("pointwise_fwd",))
+        cuda_pointwise.pointwise_bwd_reduce_cuda = wrap(
+            "pointwise_bwd_reduce_cuda", ("pointwise_bwd_reduce", "pointwise_bwd_finalize"))
+        cuda_pointwise.pointwise_bwd_dx_cuda = wrap("pointwise_bwd_dx_cuda",
+                                                    ("pointwise_bwd_dx",))
+        run["step"](run["state"], run["batch"])
+        torch.cuda.synchronize()
+    finally:
+        for fn_name, fn in originals.items():
+            setattr(cuda_pointwise, fn_name, fn)
+    check(all(n == K3_CALLS_PER_STEP for n in calls.values()),
+          f"K3 bound totals: launches {calls}, not {K3_CALLS_PER_STEP} each")
+    return totals
 
 
 def k3_run(args):
@@ -457,7 +666,7 @@ def k3_against_plain(device: torch.device) -> dict:
                        torch.bfloat16 if x_bf16 else torch.float32, torch.bfloat16, seed=50 + i)
         x3, g, b, m, inv, w, cb, dy = args
         parts = cuda_pointwise.pointwise_bwd_partials_cuda(x3, g, b, m, inv, w, dy)
-        dw, dcb, dg, db = cuda_pointwise.pointwise_bwd_finalize_cuda(*parts)
+        _, _, dg, db = cuda_pointwise.pointwise_bwd_finalize_cuda(*parts)
         # pass A is one function (dW, dcb, dγ, dβ from x, W, dy), timed as
         # such: its partials kernel and their finalize together
         timed = {
@@ -475,21 +684,7 @@ def k3_against_plain(device: torch.device) -> dict:
                 lambda: cuda_pointwise.pointwise_bwd_dx_cuda(x3, g, b, m, inv, w, dy, dg, db),
                 lambda: PW.pointwise_bwd_dx_plain(x3, g, b, m, inv, w, dy, dg, db).to(x3.dtype)),
         }
-        R, stats = B * math.prod(spatial), nbytes(g, b, m, inv)
-        product = 2 * R * C * Co
-        # each input of the function read once, each output written once;
-        # bf16 products. The partials are scratch of this design, not work
-        # of the function: the finalize's share of pass A's bound is the
-        # writing of pass A's outputs
-        bounds = {
-            "pointwise_fwd": least_time(nbytes(x3, w, cb) + stats + R * Co * 2, product,
-                                        torch.bfloat16),
-            "pointwise_bwd_reduce": least_time(nbytes(x3, w, dy, dw, dcb, dg, db) + stats,
-                                               2 * product, torch.bfloat16),
-            "pointwise_bwd_finalize": least_time(nbytes(dw, dcb, dg, db), 0, torch.float32),
-            "pointwise_bwd_dx": least_time(nbytes(x3, w, dy, dg, db, x3) + stats, product,
-                                           torch.bfloat16),
-        }
+        bounds = k3_bounds(x3, w, dy)
         shape = f"(B,C,Co)={(B, C, Co)} spatial {spatial} x {str(x3.dtype)[6:]} W bf16"
         partials_ms = cuda_ms(
             lambda: cuda_pointwise.pointwise_bwd_partials_cuda(x3, g, b, m, inv, w, dy),
@@ -800,11 +995,19 @@ def device_idle_share(fn, calls: int = 3) -> str:
         else:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
+    # the port's own kernels, by the name of their __global__ function
+    ours = {}
+    for name, t in by_name.items():
+        fn = re.match(r"(?:void )?([A-Za-z_]\w*)", name.replace("(anonymous namespace)::", ""))
+        if fn and fn.group(1).startswith(("texthead_", "poe_subsets", "pointwise_")):
+            ours[fn.group(1)] = ours.get(fn.group(1), 0.0) + t
     return (f"device idle share over {calls} calls (profiled): wall {wall_us / calls / 1e3:.3f} ms"
             f"/call, device busy {busy / calls / 1e3:.3f} ms/call, idle "
             f"{100.0 * (1.0 - busy / wall_us):.1f}%, {len(spans) // calls} device ops/call; "
             "top device time per call: "
-            + "; ".join(f"{name[:60]} {t / calls / 1e3:.3f} ms" for name, t in top))
+            + "; ".join(f"{name[:60]} {t / calls / 1e3:.3f} ms" for name, t in top)
+            + "; the port's kernels per call: "
+            + "; ".join(f"{name} {t / calls / 1e3:.4f} ms" for name, t in sorted(ours.items())))
 
 
 def one_step_grads(cfg, sd, device, batch) -> tuple:
@@ -846,7 +1049,7 @@ def gpu_step_against_cpu(cfg, device, kernels=K12, n: int = 8) -> dict:
     batch = training_batch(cfg, n, seed=14, device="cpu")
     before = launch_counts()
     got, g_gpu = one_step_grads(cfg, sd, device, batch)
-    check(all(launch_counts()[k] > before[k] for k in kernels),
+    check(all(launch_counts()[k] > before[k] for k in kernels if k not in BF16_ONLY),
           "GPU train step did not launch every kernel")
     ref, g_cpu = one_step_grads(cfg, sd, "cpu", batch)
     _, g64 = one_step_grads(cfg64, sd, "cpu", batch)
@@ -913,12 +1116,15 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.load_library()
     print(f"build: {lib._name} in {time.perf_counter() - t0:.1f} s")
+    sass = kernel_resources(lib._name)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = {"poe_subsets_f32": k1_against_plain(device),
                "poe_subsets_bwd_f32": k1_bwd_against_plain(device),
-               **k2_against_plain(device), **k3_against_plain(device)}
+               **k2_against_plain(device, card_line), **k3_against_plain(device)}
+    for name in TENSOR_CORE_KERNELS:
+        results[name.removesuffix("_tc")]["sass"] = sass[name]
 
     flagship = MopoeConfig.from_json(str(FLAGSHIP))
     sd = random_state_dict(flagship)
@@ -947,9 +1153,9 @@ def main() -> int:
                                  lr_warmup_steps=TRAIN_WARMUP_STEPS)
     runs = {}
     for path, cfg, launched, per_step in (
-            ("train", train_cfg, K12, None),
+            ("train", train_cfg, K12, K2_PER_STEP),
             ("train_fused_pointwise", train_cfg.replace(fused_pointwise=True), tuple(KERNELS),
-             dict.fromkeys(K3, K3_CALLS_PER_STEP))):
+             {**K2_PER_STEP, **dict.fromkeys(K3, K3_CALLS_PER_STEP)})):
         knobs = "fused_text_head" + (", fused_pointwise" if cfg.fused_pointwise else "")
         run = runs[path] = drive_training(cfg, device, launched, per_step)
         terms = {k: round(float(v), 4) for k, v in loss_terms(run["metrics"]).items()}
@@ -963,6 +1169,9 @@ def main() -> int:
     turns = steps_in_turns(runs)
     print("p50 train step in turns (A B B A, 5 steps a turn, after the runs above): "
           + ", ".join(f"{p} {t:.3f} ms" for p, t in turns.items()) + f" [{card_line}]")
+    k3_totals = k3_step_bounds(runs["train_fused_pointwise"])
+    print(f"K3 per fused_pointwise step, Σ over its {K3_CALLS_PER_STEP} blocks of the bound on "
+          "each launch's inputs: " + ", ".join(f"{n} {t:.4f} ms" for n, t in k3_totals.items()))
     for run in runs.values():
         del run["state"], run["batch"], run["step"]
     gpu_step_against_cpu(flagship.replace(fused_text_head=True), device)

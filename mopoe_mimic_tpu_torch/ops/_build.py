@@ -5,7 +5,8 @@ all started at once, and link into one shared library with a plain C
 interface (no PyTorch headers: seconds to build, where
 ``torch.utils.cpp_extension.load`` takes minutes). The library goes to
 ``build/kernels/`` beside the package, keyed by a hash of the sources and
-flags, so an edited kernel never loads a stale binary. A failed build
+flags, so an edited kernel never loads a stale binary; ptxas's report of
+each kernel's registers and spills goes beside it. A failed build
 raises with nvcc's output; nothing falls back.
 """
 
@@ -68,19 +69,27 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmopoe_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _run(procs) -> None:
-    """Wait for every (command, process); raise with nvcc's output on failure."""
-    failed = []
+def _run(procs) -> str:
+    """Wait for every (command, process); raise with nvcc's output on
+    failure, else return what the processes wrote to stderr."""
+    failed, logs = [], []
     for cmd, proc in procs:
         out, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        logs.append(err)
     if failed:
         raise RuntimeError("\n".join(failed))
+    return "".join(logs)
 
 
 def _start(cmd):
     return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def build_log_path() -> Path:
+    """ptxas's report (``-Xptxas -v``: registers, spills) of the library's build."""
+    return library_path().with_suffix(".log")
 
 
 def build() -> Path:
@@ -93,9 +102,11 @@ def build() -> Path:
     objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     tmp = BUILD_DIR / f"{tag}.tmp.so"
     try:
-        _run([_start([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
-              for src, obj in zip(_sources(), objects)])
+        compile_ = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c"]
+        log = _run([_start([*compile_, "-o", str(obj), str(src)])
+                    for src, obj in zip(_sources(), objects)])
         _run([_start([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)])])
+        build_log_path().write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     finally:
         for path in (*objects, tmp):
@@ -117,8 +128,13 @@ def load_library() -> ctypes.CDLL:
         "texthead_fwd": [ptr] * 6 + [i32] * 4 + [ptr],
         # h, W, b, targets, lse, g, dh, R, C, V, dtype, stream
         "texthead_bwd_dh": [ptr] * 7 + [i32] * 4 + [ptr],
-        # h, W, b, targets, lse, g, dW, db, R, C, V, dtype, stream
-        "texthead_bwd_dw": [ptr] * 8 + [i32] * 4 + [ptr],
+        # R, C, V (no launch)
+        "texthead_bwd_dw_splits": [i32] * 3,
+        # h, W, b, targets, lse, g, dW (or partials), db (or partials), R, C, V, splits,
+        # dtype, stream
+        "texthead_bwd_dw": [ptr] * 8 + [i32] * 5 + [ptr],
+        # part_dw, part_db, dW, db, splits, C, V, stream
+        "texthead_bwd_dw_finalize": [ptr] * 4 + [i32] * 3 + [ptr],
         # x, gamma, beta, mean, inv, W, cb, y, B, C, Co, S, x_dtype, w_dtype, stream
         "pointwise_fwd": [ptr] * 8 + [i32] * 6 + [ptr],
         # x, gamma, beta, mean, inv, W, dy, part_dw, part_dcb, part_dg, part_db,

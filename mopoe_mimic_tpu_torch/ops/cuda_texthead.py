@@ -7,10 +7,17 @@ Replaces the Pallas TPU kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
 ``torch.autograd.Function`` that saves only lse. Their plain PyTorch
 versions are ``ops/texthead.texthead_fwd_plain`` and
 ``texthead_bwd_plain``.
+
+In bfloat16 the backward runs on tensor cores, and ``texthead_bwd_dw``
+splits the rows across blocks: it writes each split's partial dW and db,
+and ``texthead_bwd_dw_finalize`` sums them in a fixed order. In float32
+both backward kernels run on the CUDA cores and ``texthead_bwd_dw`` writes
+dW and db itself.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -19,7 +26,8 @@ from mopoe_mimic_tpu_torch.ops import _build
 
 # Launches of each kernel since the last reset; read by chip_smoke.py to
 # show that the main path went through the kernels.
-LAUNCHES = {"texthead_fwd": 0, "texthead_bwd_dh": 0, "texthead_bwd_dw": 0}
+LAUNCHES = {"texthead_fwd": 0, "texthead_bwd_dh": 0, "texthead_bwd_dw": 0,
+            "texthead_bwd_dw_finalize": 0}
 
 MAX_CHANNELS = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,6 +53,8 @@ def _check(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     if h.dtype not in _DTYPE_CODE or kernel.dtype != h.dtype:
         raise TypeError(f"texthead_cuda: h {h.dtype} and kernel {kernel.dtype} must both be "
                         "float32 or both bfloat16")
+    if h.dtype == torch.bfloat16 and kernel.data_ptr() % 4:
+        raise ValueError("texthead_cuda: a bfloat16 kernel must start 4-byte aligned")
     if bias.dtype != torch.float32:
         raise TypeError(f"texthead_cuda: bias is {bias.dtype}; the kernels take float32")
     if h.dim() != 2 or kernel.dim() != 2 or bias.dim() != 1 or targets.dim() != 1:
@@ -83,15 +93,58 @@ def texthead_bwd_dh_cuda(h, kernel, bias, targets, lse, g) -> torch.Tensor:
     return dh
 
 
+@functools.lru_cache(maxsize=None)
+def _dw_splits(device_index: int, R: int, C: int, V: int) -> int:
+    """Row splits of bfloat16 ``texthead_bwd_dw`` on the current device
+    (``device_index`` keys the cache)."""
+    splits = _build.load_library().texthead_bwd_dw_splits(R, C, V)
+    if splits < 1:
+        raise RuntimeError(f"texthead_bwd_dw_splits failed: cudaError {-splits}")
+    return splits
+
+
+def texthead_bwd_dw_partials_cuda(h, kernel, bias, targets, lse, g
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``texthead_bwd_dw`` on bfloat16 inputs: the partial sums of its row
+    splits, dW [splits, C, V] and db [splits, V], float32."""
+    (R, C), V = h.shape, kernel.shape[1]
+    with torch.cuda.device(h.device):
+        splits = _dw_splits(h.device.index, R, C, V)
+        part_dw = torch.empty((splits, C, V), dtype=torch.float32, device=h.device)
+        part_db = torch.empty((splits, V), dtype=torch.float32, device=h.device)
+        _launch("texthead_bwd_dw", h.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+                targets.data_ptr(), lse.data_ptr(), g.data_ptr(), part_dw.data_ptr(),
+                part_db.data_ptr(), R, C, V, splits, _DTYPE_CODE[h.dtype])
+    return part_dw, part_db
+
+
+def texthead_bwd_dw_finalize_cuda(part_dw: torch.Tensor, part_db: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``texthead_bwd_dw_finalize``: dW [C, V] and db [V], the partials
+    summed over their splits in order."""
+    splits, C, V = part_dw.shape
+    dw = part_dw.new_empty((C, V))
+    db = part_db.new_empty((V,))
+    with torch.cuda.device(part_dw.device):
+        _launch("texthead_bwd_dw_finalize", part_dw.data_ptr(), part_db.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), splits, C, V)
+    return dw, db
+
+
 def texthead_bwd_dw_cuda(h, kernel, bias, targets, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``texthead_bwd_dw``: dW [C, V] and db [V], float32; g [R] float32."""
+    """dW [C, V] and db [V], float32; g [R] float32. bfloat16: the
+    tensor-core partials, then their finalize; float32: ``texthead_bwd_dw``
+    alone."""
+    if h.dtype == torch.bfloat16:
+        return texthead_bwd_dw_finalize_cuda(
+            *texthead_bwd_dw_partials_cuda(h, kernel, bias, targets, lse, g))
     (R, C), V = h.shape, kernel.shape[1]
     dw = torch.empty((C, V), dtype=torch.float32, device=h.device)
     db = torch.empty((V,), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         _launch("texthead_bwd_dw", h.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
                 targets.data_ptr(), lse.data_ptr(), g.data_ptr(), dw.data_ptr(),
-                db.data_ptr(), R, C, V, _DTYPE_CODE[h.dtype])
+                db.data_ptr(), R, C, V, 1, _DTYPE_CODE[h.dtype])
     return dw, db
 
 

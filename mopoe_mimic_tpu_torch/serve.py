@@ -1,5 +1,5 @@
 """Inference: encode / generate / conditional generation with batch-size
-bucketing, on a CPU or a CUDA device.
+bucketing, on a CUDA device (the default) or, when asked, the CPU.
 
 Port of ``mopoe_mimic_tpu/serve.py``'s ``InferenceSession``. Requests are
 split into chunks of at most the largest bucket, and each chunk is padded
@@ -59,7 +59,8 @@ class InferenceSession:
     cfg: the model's configuration (``MopoeConfig``, as a JAX run writes it).
     state_dict: the port's weights (reference key names); None keeps the
         model's own initialisation.
-    device: where the model runs ("cpu", "cuda", "cuda:1", ...).
+    device: where the model runs ("cuda", the default, "cuda:1", ... or
+        "cpu" when asked for).
     buckets: allowed static batch sizes; requests pad up to the nearest.
     """
 
@@ -67,7 +68,7 @@ class InferenceSession:
         self,
         cfg: MopoeConfig,
         state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
         buckets: Sequence[int] = DEFAULT_BUCKETS,
     ):
         self.cfg = cfg
@@ -199,18 +200,23 @@ class InferenceSession:
 # CLI
 # ---------------------------------------------------------------------------
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="Generate samples with the PyTorch port.")
     ap.add_argument("--config", required=True, help="MopoeConfig JSON (a run's config.json)")
     ap.add_argument("--weights", required=True, help="state_dict saved with torch.save")
     ap.add_argument("--mode", choices=("generate",), default="generate")
     ap.add_argument("--num_samples", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="the card (default), or cpu when asked for; no fallback")
     ap.add_argument("--compact", action="store_true",
                     help="wire format: text as int32 ids (text_ids.npy), images as uint8")
     ap.add_argument("--out", required=True, help="output directory")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = build_parser().parse_args(argv)
 
     cfg = MopoeConfig.from_json(args.config)
     state_dict = torch.load(args.weights, map_location="cpu", weights_only=True)

@@ -42,12 +42,13 @@ def warmup_factor(cfg, step: int) -> float:
     return min(1.0, (step + 1.0) / n) if n > 0 else 1.0
 
 
-def create_train_state(cfg, device: Union[str, torch.device] = "cpu",
+def create_train_state(cfg, device: Union[str, torch.device] = "cuda",
                        state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                        seed: int = 0) -> TrainState:
     """PyTorch's default init from ``seed`` (what the JAX package's
     ``torch_init=True`` emulates), or the given ``state_dict``; parameters
-    in ``cfg.param_dtype`` (float32, or float64 for oracle runs)."""
+    in ``cfg.param_dtype`` (float32, or float64 for oracle runs), on
+    ``device``: the card unless the caller asks for the CPU."""
     device = torch.device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

@@ -16,7 +16,8 @@ kernel). K2 in float32 with TF32 off: lp rtol 1e-5 atol 1e-5, gradients
 rtol 1e-4 atol 1e-5 (tests/test_pallas_texthead.py's bounds), against the
 plain pair accumulated in float64; in bfloat16 against the plain pair fed
 the same bfloat16 inputs: lp |Δ| ≤ 1e-3·max(1, |ref|), gradients
-|Δ| ≤ 2e-2·max|ref|. K3 in float32 with TF32 off against the plain
+|Δ| ≤ 2e-2·max|ref| (the bfloat16 backward runs on tensor cores: the same
+products in another order), and two runs bitwise equal. K3 in float32 with TF32 off against the plain
 versions accumulated in float64: y and dx rtol 1e-5, dW, dcb, dγ, dβ rtol
 1e-4, all atol 1e-5·max|ref|; in bfloat16 against the plain versions on the
 same inputs: y |Δ| ≤ 1e-2·max|ref|, gradients |Δ| ≤ 2e-2·max|ref|.
@@ -128,8 +129,12 @@ def test_texthead_kernels_match_plain_f32(device, shape):
         torch.testing.assert_close(got.double(), ref.double(), rtol=1e-4, atol=1e-5)
 
 
-def test_texthead_kernels_match_plain_bf16(device):
-    h, k, b, t, g = _k2_case(device, 256, 128, 64, 3517, torch.bfloat16, seed=9)
+@pytest.mark.parametrize("shape", [(3, 17, 10, 37), (3, 32, 24, 301), (2, 64, 128, 300),
+                                   (256, 128, 64, 3517)])
+def test_texthead_kernels_match_plain_bf16(device, shape):
+    """bfloat16: the backward on tensor cores, at ragged rows, vocabulary
+    and channels, at C = 128 and at the flagship."""
+    h, k, b, t, g = _k2_case(device, *shape, torch.bfloat16, seed=9)
     lp, lse = cuda_texthead.texthead_fwd_cuda(h, k, b, t)
     dh = cuda_texthead.texthead_bwd_dh_cuda(h, k, b, t, lse, g)
     dw, db = cuda_texthead.texthead_bwd_dw_cuda(h, k, b, t, lse, g)
@@ -140,6 +145,15 @@ def test_texthead_kernels_match_plain_bf16(device):
     for got, ref in zip((dh, dw, db), refs):
         err = (got.float() - ref.float()).abs().max()
         assert float(err) <= 2e-2 * float(ref.float().abs().max())
+
+
+def test_texthead_backward_is_deterministic(device):
+    """No atomics: dW and db's row splits are summed in a fixed order."""
+    h, k, b, t, g = _k2_case(device, 256, 128, 64, 3517, torch.bfloat16, seed=11)
+    _, lse = cuda_texthead.texthead_fwd_cuda(h, k, b, t)
+    runs = [(cuda_texthead.texthead_bwd_dh_cuda(h, k, b, t, lse, g),
+             *cuda_texthead.texthead_bwd_dw_cuda(h, k, b, t, lse, g)) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
 
 
 def test_fused_text_logprob_gradients_through_the_kernels(device):
@@ -154,11 +168,22 @@ def test_fused_text_logprob_gradients_through_the_kernels(device):
     x = [a.clone().requires_grad_() for a in (h, k, b)]
     before = dict(cuda_texthead.LAUNCHES)
     got = torch.autograd.grad((w * TH.fused_text_logprob(*x, t)).sum(), x)
-    assert all(cuda_texthead.LAUNCHES[n] == before[n] + 1 for n in before)
+    # float32: dW has no row splits, so no finalize
+    added = {n: cuda_texthead.LAUNCHES[n] - before[n] for n in before}
+    assert added == {"texthead_fwd": 1, "texthead_bwd_dh": 1, "texthead_bwd_dw": 1,
+                     "texthead_bwd_dw_finalize": 0}
     y = [a.clone().requires_grad_() for a in (h, k, b)]
     ref = torch.autograd.grad((w * TH.reference_text_logprob(*y, t)).sum(), y)
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+
+
+def test_fused_text_logprob_bf16_launches_the_finalize(device):
+    h, k, b, t, g = _k2_case(device, 3, 32, 24, 301, torch.bfloat16, seed=4)
+    x = [a.clone().requires_grad_() for a in (h.reshape(3, 32, 24), k.float(), b)]
+    before = dict(cuda_texthead.LAUNCHES)
+    torch.autograd.grad((g.reshape(3, 32) * TH.fused_text_logprob(*x, t.reshape(3, 32))).sum(), x)
+    assert all(cuda_texthead.LAUNCHES[n] == before[n] + 1 for n in before)
 
 
 def test_texthead_refuses_what_it_does_not_take(device):
@@ -170,6 +195,9 @@ def test_texthead_refuses_what_it_does_not_take(device):
         cuda_texthead.texthead_cuda(wide, torch.zeros((129, 40), device=device), b, t)
     with pytest.raises(ValueError, match="different devices"):
         TH.fused_text_logprob(h.reshape(2, 8, 16), k.cpu(), b, t.reshape(2, 8))
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        odd = torch.zeros(16 * 40 + 1, device=device, dtype=torch.bfloat16)[1:].view(16, 40)
+        cuda_texthead.texthead_cuda(h.to(torch.bfloat16), odd, b, t)
 
 
 def _k3_case(device, B, C, Co, S, x_dtype, w_dtype, transpose=False, bias=True, seed=0):

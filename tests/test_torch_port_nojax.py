@@ -76,7 +76,8 @@ rng = np.random.default_rng(0)
 batch = {"PA": rng.random((2, 1, 64, 64), dtype=np.float32),
          "Lateral": rng.random((2, 1, 64, 64), dtype=np.float32),
          "text": rng.integers(0, 30, (2, 128))}
-loss = float(make_train_step(cfg)(create_train_state(cfg, seed=0), batch)["total_loss"])
+state = create_train_state(cfg, device="cpu", seed=0)
+loss = float(make_train_step(cfg)(state, batch)["total_loss"])
 assert np.isfinite(loss), loss
 bad = sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r})
 print("step ok", flagship.DIM_img, "forbidden", bad)

@@ -330,7 +330,7 @@ def fused_step():
     state_dict entries; port: the same and the step's metrics) of one step
     from the port's seeded init, dropout off, z = mu."""
     cfg = MopoeConfig(**KW, **CASE)
-    sd = create_train_state(cfg, seed=11).model.state_dict()
+    sd = create_train_state(cfg, device="cpu", seed=11).model.state_dict()
     batch = numpy_batch(seed=11)
 
     jcfg = JaxConfig(**KW, **CASE)
@@ -358,7 +358,7 @@ def fused_step():
         {"params": params, "batch_stats": jax.device_get(new_bs)}, cfg).items()
         if k.endswith(("running_mean", "running_var"))}
 
-    state = create_train_state(cfg, state_dict=sd)
+    state = create_train_state(cfg, device="cpu", state_dict=sd)
     no_dropout(state.model)
     m = make_train_step(cfg, eps=0.0)(state, port_batch(batch))
     p_grads = {k: p.grad.clone() for k, p in state.model.named_parameters()}
@@ -410,7 +410,7 @@ def test_fused_model_runs_every_block_through_the_op(monkeypatch):
     monkeypatch.setattr(PW._PlainPointwise, "apply",
                         lambda *args: calls.append(args[0].shape) or apply(*args))
     cfg = MopoeConfig(**KW, **CASE)
-    state = create_train_state(cfg, seed=12)
+    state = create_train_state(cfg, device="cpu", seed=12)
     blocks = [m for m in state.model.modules() if isinstance(m, TR._ResidualBlock)]
     assert len(blocks) == 28 and all(b.fused_pointwise for b in blocks)
     make_train_step(cfg, eps=0.0)(state, port_batch(numpy_batch(seed=12)))

@@ -50,7 +50,7 @@ def pairs():
         jsess = JaxSession(cfg=jcfg, state=state, buckets=(2, 4))
         pcfg = MopoeConfig(method=method, **KW)
         psess = InferenceSession(pcfg, state_dict=state_dict_from_jax(variables, pcfg),
-                                 buckets=(2, 4))
+                                 device="cpu", buckets=(2, 4))
         out[method] = (jsess, psess, batch, variables)
     return out
 
@@ -178,9 +178,11 @@ def test_chip_smoke_slice_phase_rehearses_on_cpu(pairs):
 
     *_, variables = pairs["joint_elbo"]
     cfg = MopoeConfig(method="joint_elbo", **KW)
-    sess = InferenceSession(cfg, state_dict=state_dict_from_jax(variables, cfg), buckets=(1, 8, 32))
+    sess = InferenceSession(cfg, state_dict=state_dict_from_jax(variables, cfg), device="cpu",
+                            buckets=(1, 8, 32))
     outs = chip_smoke.drive_slice(sess, n_encode=40, n_generate=16, n_cond=8)
     chip_smoke.check_slice(cfg, outs, n_encode=40, n_generate=16, n_cond=8)
     sd = chip_smoke.random_state_dict(cfg)
     assert set(sd) == set(sess.model.state_dict())
-    chip_smoke.check_slice(cfg, chip_smoke.drive_slice(InferenceSession(cfg, state_dict=sd)))
+    sess = InferenceSession(cfg, state_dict=sd, device="cpu")
+    chip_smoke.check_slice(cfg, chip_smoke.drive_slice(sess))

@@ -113,3 +113,100 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="not a CUDA device"):
         texthead_cuda(torch.from_numpy(h.reshape(16, 6)), torch.from_numpy(kernel[0]),
                       torch.from_numpy(bias), torch.from_numpy(targets.reshape(16)))
+
+
+def test_chip_smoke_k2_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke.py's K2 phase (the checks against the plain pair, the
+    two-run determinism check, timings, bounds, the unfused head) with the
+    plain versions standing in for the kernels, at small shapes on the CPU:
+    the bfloat16 dW as partials of two row splits and their finalize."""
+    import warnings
+
+    import chip_smoke
+
+    ct = chip_smoke.cuda_texthead
+
+    def partials(h, k, b, t, lse, g):
+        halves = [TH.texthead_bwd_plain(h[rows], k, b, t[rows], lse[rows], g[rows])[1:]
+                  for rows in (slice(0, len(h) // 2), slice(len(h) // 2, None))]
+        return torch.stack([dw for dw, _ in halves]), torch.stack([db for _, db in halves])
+
+    def finalize(part_dw, part_db):
+        return part_dw.sum(0), part_db.sum(0)
+
+    monkeypatch.setattr(ct, "texthead_fwd_cuda", TH.texthead_fwd_plain)
+    monkeypatch.setattr(ct, "texthead_bwd_dh_cuda",
+                        lambda *a: TH.texthead_bwd_plain(*a)[0])
+    monkeypatch.setattr(ct, "texthead_bwd_dw_partials_cuda", partials)
+    monkeypatch.setattr(ct, "texthead_bwd_dw_finalize_cuda", finalize)
+    monkeypatch.setattr(ct, "texthead_bwd_dw_cuda", lambda *a: finalize(*partials(*a)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, calls=1, warmup=0: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "FLAGSHIP_HEAD", (2, 8, 16, 40))
+    monkeypatch.setattr(chip_smoke, "K2_CASES", (((3, 17, 10, 37), torch.float32),
+                                                 ((3, 17, 10, 37), torch.bfloat16),
+                                                 ((2, 8, 16, 40), torch.bfloat16)))
+    autocast = torch.autocast  # the card's bf16 autocast, on the CPU
+    monkeypatch.setattr(torch, "autocast", lambda device_type, dtype=None, **kw: autocast(
+        "cpu", dtype=dtype, **kw))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        out = chip_smoke.k2_against_plain(torch.device("cpu"), "a card, 700 W")
+    keys = {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    names = {n for n, (src, _) in chip_smoke.KERNELS.items() if src == chip_smoke.K2_SOURCE}
+    assert set(out) == names and all(keys <= set(v) for v in out.values())
+    assert all(v["library_ms"] is None for v in out.values())
+    assert out["texthead_fwd"]["head_ms"].keys() == {"fused_fwd", "fused_fwd_bwd",
+                                                     "unfused_fwd", "unfused_fwd_bwd"}
+    assert out["texthead_bwd_dw"]["splits"] == 2 and out["texthead_bwd_dw"]["partials_ms"] == 1.0
+    # dW's bound at R = 16, C = 16, V = 40: two products at the bf16 peak
+    # against h, W (bf16), b, t, lse, g read and dW, db written once
+    R, C, V = 16, 16, 40
+    moved = R * C * 2 + C * V * 2 + V * 4 + R * 4 * 3 + (C * V + V) * 4
+    assert out["texthead_bwd_dw"]["bound_ms"] == pytest.approx(max(
+        moved / chip_smoke.HBM_BYTES_PER_S, 2 * 2 * R * C * V / 989e12) * 1e3)
+    assert out["texthead_bwd_dw_finalize"]["bound_ms"] == pytest.approx(
+        (C * V + V) * 4 / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_chip_smoke_reads_registers_spills_and_tensor_core_instructions(monkeypatch, tmp_path):
+    """Phase 2's report, from a build log and a SASS listing in the formats
+    of ptxas -v and cuobjdump -sass; a kernel without HMMA fails."""
+    import subprocess
+
+    import chip_smoke
+
+    dh = "_Z18texthead_bwd_dh_tcILi4ELi2EEvPK13__nv_bfloat16"
+    dw = "_Z18texthead_bwd_dw_tcILi4ELb1EEv"
+    log = tmp_path / "lib.log"
+    log.write_text("\n".join([
+        f"ptxas info    : Compiling entry function '{dh}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {dh}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 246 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{dw}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {dw}",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 127 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z19texthead_fwd_kernelIfEv' for 'sm_90a'",
+        "ptxas info    : Used 120 registers, used 1 barriers"]))
+    sass = "\n".join([
+        f"        Function : {dh}", "        /*0a70*/  HMMA.16816.F32.BF16 R24, R100, R4, R24 ;",
+        "        /*0a80*/  HMMA.16816.F32.BF16 R28, R100, R6, R28 ;",
+        f"        Function : {dw}", "        /*0b00*/  HMMA.16816.F32.BF16 R8, R12, R4, R8 ;",
+        "        Function : _Z19texthead_fwd_kernelIfEv",
+        "        /*0010*/  FFMA R1, R2, R3, R1 ;"])
+    monkeypatch.setattr(chip_smoke._build, "build_log_path", lambda: log)
+    monkeypatch.setattr(chip_smoke._build, "_nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(
+        cmd, 0, stdout=sass, stderr=""))
+    got = chip_smoke.kernel_resources("lib.so")
+    assert got["texthead_bwd_dh_tc"][dh] == {"registers": 246, "tensor_core_instructions": 2,
+                                             "stack_bytes": 0, "spill_store_bytes": 0,
+                                             "spill_load_bytes": 0}
+    assert got["texthead_bwd_dw_tc"][dw]["tensor_core_instructions"] == 1
+    assert got["texthead_bwd_dw_tc"][dw]["spill_store_bytes"] == 4
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(
+        cmd, 0, stdout=sass.replace("HMMA", "FFMA"), stderr=""))
+    with pytest.raises(chip_smoke.SmokeFailure, match="HMMA"):
+        chip_smoke.kernel_resources("lib.so")

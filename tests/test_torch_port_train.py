@@ -164,7 +164,7 @@ def jax_run(case, sd, batch, steps):
 
 def port_run(case, sd, batch, steps):
     cfg = MopoeConfig(**KW, **CASES[case])
-    state = create_train_state(cfg, state_dict=sd)
+    state = create_train_state(cfg, device="cpu", state_dict=sd)
     no_dropout(state.model)
     train_step = make_train_step(cfg, eps=0.0)
     terms, first = [], None
@@ -186,7 +186,7 @@ def runs():
     out = {}
     for i, case in enumerate(CASES):
         cfg = MopoeConfig(**KW, **CASES[case])
-        sd = create_train_state(cfg, seed=i).model.state_dict()
+        sd = create_train_state(cfg, device="cpu", seed=i).model.state_dict()
         batch = numpy_batch(seed=i)
         steps = TRAJECTORY_STEPS if case == "joint_elbo_fused" else 1
         out[case] = (jax_run(case, sd, batch, steps), port_run(case, sd, batch, steps))
@@ -249,11 +249,11 @@ def test_fused_and_unfused_port_steps_agree():
     """The port's fused head and its unfused decoder give the same step
     (as test_fused_head_train_step_matches_unfused does for JAX)."""
     batch = port_batch(numpy_batch(seed=7))
-    sd = create_train_state(MopoeConfig(**KW), seed=7).model.state_dict()
+    sd = create_train_state(MopoeConfig(**KW), device="cpu", seed=7).model.state_dict()
     terms = {}
     for fused in (False, True):
         cfg = MopoeConfig(**KW, fused_text_head=fused)
-        state = create_train_state(cfg, state_dict=sd)
+        state = create_train_state(cfg, device="cpu", state_dict=sd)
         no_dropout(state.model)
         step = make_train_step(cfg, eps=0.0)
         terms[fused] = [loss_terms(step(state, batch)) for _ in range(2)]
@@ -267,7 +267,7 @@ def test_fused_and_unfused_port_steps_agree():
 def test_optimizer_warmup_clipping_and_learning_rate():
     cfg = MopoeConfig(**KW, lr_warmup_steps=4, grad_clip_norm=1.0)
     assert [warmup_factor(cfg, s) for s in range(5)] == [0.25, 0.5, 0.75, 1.0, 1.0]
-    state = create_train_state(cfg, seed=3)
+    state = create_train_state(cfg, device="cpu", seed=3)
     no_dropout(state.model)
     assert get_learning_rate(state) == pytest.approx(5e-4)
     m = make_train_step(cfg, eps=0.0)(state, port_batch(numpy_batch(seed=3)))
@@ -282,7 +282,7 @@ def test_optimizer_warmup_clipping_and_learning_rate():
 
 def test_eval_step_uses_running_stats_and_keeps_train_mode():
     cfg = MopoeConfig(**KW)
-    state = create_train_state(cfg, seed=4)
+    state = create_train_state(cfg, device="cpu", seed=4)
     batch = port_batch(numpy_batch(seed=4))
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     m = make_eval_step(cfg, eps=0.0)(state, batch)
@@ -298,7 +298,7 @@ def test_uint8_batch_is_dequantised():
     deq = dict(batch, PA=q["PA"].float() / 255.0)
     out = []
     for b in (q, deq):
-        state = create_train_state(cfg, seed=5)
+        state = create_train_state(cfg, device="cpu", seed=5)
         no_dropout(state.model)
         out.append(loss_terms(make_train_step(cfg, eps=0.0)(state, b)))
     assert out[0] == out[1]
@@ -313,12 +313,13 @@ def test_chip_smoke_training_phase_rehearses_on_cpu():
     cfg = MopoeConfig(**KW, fused_text_head=True)
     run = chip_smoke.drive_training(cfg, "cpu", kernels=(), warmup=1, steps=2)
     assert run["p50_ms"] > 0 and set(run["launches"]) == set(chip_smoke.KERNELS)
-    sd = create_train_state(cfg, seed=0).model.state_dict()
+    sd = create_train_state(cfg, device="cpu", seed=0).model.state_dict()
     batch = chip_smoke.training_batch(cfg, 4, seed=14, device="cpu")
     terms, grads = chip_smoke.one_step_grads(cfg, sd, "cpu", batch)
     again, grads2 = chip_smoke.one_step_grads(cfg, sd, "cpu", batch)
     assert terms == again and all(torch.equal(grads[k], grads2[k]) for k in grads)
-    assert set(grads) == {k for k, _ in create_train_state(cfg).model.named_parameters()}
+    params = create_train_state(cfg, device="cpu").model.named_parameters()
+    assert set(grads) == {k for k, _ in params}
     # the float64 oracle step: the same step to float32's precision
     cfg64 = cfg.replace(compute_dtype="float64", param_dtype="float64")
     terms64, grads64 = chip_smoke.one_step_grads(cfg64, sd, "cpu", batch)
