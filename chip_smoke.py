@@ -7,15 +7,18 @@ Needs one CUDA device; exits non-zero, printing no result, without one.
 Imports the port (``mopoe_mimic_tpu_torch``), torch and numpy only. Phases,
 any failure of which exits non-zero:
 
-  1. device: the card's name and power limit (nvidia-smi);
+  1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
   2. build: the CUDA kernels from ``mopoe_mimic_tpu_torch/csrc`` into
      ``build/kernels/``, one nvcc per source, all at once; for K2's
-     tensor-core kernels (bfloat16 ``texthead_bwd_dh``, ``texthead_bwd_dw``)
-     ptxas's registers and spills and the count of HMMA/HGMMA instructions
-     in their SASS (``cuobjdump -sass``), which must not be 0;
+     tensor-core kernels (bfloat16 ``texthead_fwd``, ``texthead_bwd_dh``,
+     ``texthead_bwd_dw``) ptxas's registers and spills and the count of
+     HMMA/HGMMA instructions in their SASS (``cuobjdump -sass``), which must
+     not be 0 in any instantiation;
   3. K1 against its plain PyTorch version on the card, M ∈ {1, 2, 3},
      B ∈ {1, 5, 8, 32, 128, 256}, D = 64, with and without the prior
-     expert: max |Δ| ≤ 1e-6·max(1, |ref|); then both timed at B = 128, 256;
+     expert: max |Δ| ≤ 1e-6·max(1, |ref|); then both timed at B = 128, 256,
+     and the host's µs per call of each piece of one ``poe_subsets_cuda``
+     call (``k1_host_us``: 1000 back-to-back calls of each);
      K1's backward against the closed-form plain backward and against
      autograd of the plain forward, M ∈ {1, 2, 3}, B ∈ {1, 5, 256}, prior
      both ways: |Δ| ≤ 1e-5·max(1, |ref|); timed at B = 256;
@@ -25,7 +28,9 @@ any failure of which exits non-zero:
      with TF32 off (lp rtol 1e-5 atol 1e-5; dh, dW, db rtol 1e-4 atol
      1e-5; the plain pair accumulated in float64), and (3, 17, 10, 37),
      (3, 32, 24, 301), (2, 64, 128, 300) and the flagship in bfloat16 (lp
-     |Δ| ≤ 1e-3·max(1, |ref|), each gradient |Δ| ≤ 2e-2·max|ref|), every
+     and lse |Δ| ≤ 1e-5·max(1, |ref|): bf16 × bf16 products are exact in
+     float32, so only the order of the sums and ex2 differ; each gradient
+     |Δ| ≤ 2e-2·max|ref|), every
      case run twice and bitwise equal; each kernel timed at the flagship
      (dW with its finalize, and each alone), and the head as the model
      runs it, fused (K2) and unfused (bf16 autocast conv_out →
@@ -82,13 +87,14 @@ any failure of which exits non-zero:
 
 The last lines are a JSON object of the kernels (each with its launches on
 its path, error, time, plain time, the least time the card could take for
-its bytes and operations, and the time of a single PyTorch call computing
-the same function where one exists), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+its bytes, operations and exponentials, and the time of a single PyTorch
+call computing the same function where one exists), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -136,7 +142,7 @@ K2_PER_STEP = {"texthead_fwd": 1, "texthead_bwd_dh": 1, "texthead_bwd_dw": 1,
 # bfloat16 only: float32 dW has no row splits to finalize
 BF16_ONLY = ("texthead_bwd_dw_finalize",)
 # K2's tensor-core kernels (bfloat16), by the name of their __global__ function
-TENSOR_CORE_KERNELS = ("texthead_bwd_dh_tc", "texthead_bwd_dw_tc")
+TENSOR_CORE_KERNELS = ("texthead_fwd_tc", "texthead_bwd_dh_tc", "texthead_bwd_dw_tc")
 NAMES = ("PA", "Lateral", "text")
 FLAGSHIP_HEAD = (256, 128, 64, 3517)  # K2 at the flagship: (B, L, C, V)
 TRAIN_WARMUP_STEPS = 300  # lr_warmup_steps of the training phase
@@ -154,23 +160,40 @@ def check(cond: bool, msg: str) -> None:
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's H100 datasheet):
 # HBM bytes/s, and dense operations/s by operand type (bf16 on tensor cores,
-# float32 on the CUDA cores)
+# float32 on the CUDA cores); and the SFU's exponentials (ex2), 16 a clock
+# on each of the 132 SMs (the Hopper white paper's SM), at the card's
+# maximum SM clock (``sm_max_clock_hz``)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SMS = 132
+EX2_PER_SM_CLOCK = 16
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def least_time(moved: int, ops: float, dtype: torch.dtype) -> dict:
-    """The least time the card could take: the larger of ``moved`` bytes
-    (each input read once, each output written once) over the HBM rate and
-    ``ops`` operations over the peak for ``dtype``."""
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+@functools.lru_cache(maxsize=None)
+def sm_max_clock_hz() -> float:
+    """The card's maximum SM clock, read once from nvidia-smi."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
+    return float(proc.stdout.split()[0]) * 1e6
+
+
+def least_time(moved: int, ops: float, dtype: torch.dtype, exps: float = 0) -> dict:
+    """The least time the card could take: the largest of ``moved`` bytes
+    (each input read once, each output written once) over the HBM rate,
+    ``ops`` operations over the peak for ``dtype``, and ``exps``
+    exponentials over the SFUs' rate."""
+    times = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+             "operations": ops / PEAK_OPS_PER_S[dtype] * 1e3}
+    if exps:
+        times["exponentials"] = exps / (SMS * EX2_PER_SM_CLOCK * sm_max_clock_hz()) * 1e3
+    bound_by = max(times, key=times.get)
+    return {"bound_ms": times[bound_by], "bound_by": bound_by}
 
 
 def card() -> str:
@@ -274,9 +297,23 @@ def k1_against_plain(device: torch.device) -> dict:
     print(f"K1 vs plain: max |Δ| {worst:.3e} over M∈{{1,2,3}}, B∈{{1,5,8,32,128,256}}, "
           "D=64, prior both ways (bound 1e-6·max(1,|ref|))")
 
-    times = {}
     mask = F.subset_mask_matrix(NAMES)
     n_sub, members = mask.shape[0], int(np.asarray(mask).sum())
+    times = k1_times(device)
+    # per (b, d): M precisions (exp, add, divide), per subset the member sums
+    # of T and mu·T, a divide and a log
+    ops = 128 * 64 * (3 * 3 + 2 * members + 3 * n_sub)
+    return {"max_abs_err": worst, "ms": times[128][0], "plain_ms": times[128][1],
+            **least_time(2 * 3 * 128 * 64 * 4 + 2 * n_sub * 128 * 64 * 4, ops, torch.float32),
+            "library_ms": None, "ms_b256": times[256][0], "host_us": k1_host_us(device)}
+
+
+def k1_times(device: torch.device) -> dict:
+    """K1's forward (``poe_subsets_cuda``, no gradient) and its plain
+    version timed at M = 3, B ∈ {128, 256}, D = 64: {B: (kernel ms, plain
+    ms)}, CUDA-event medians of 100 calls."""
+    times = {}
+    mask = F.subset_mask_matrix(NAMES)
     for b in (128, 256):
         mus = torch.randn((3, b, 64), device=device)
         lvs = torch.randn((3, b, 64), device=device)
@@ -285,12 +322,51 @@ def k1_against_plain(device: torch.device) -> dict:
         times[b] = (k_ms, p_ms)
         print(f"K1 time M=3 B={b} D=64: kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us "
               "(median of 100 calls, CUDA events)")
-    # per (b, d): M precisions (exp, add, divide), per subset the member sums
-    # of T and mu·T, a divide and a log
-    ops = 128 * 64 * (3 * 3 + 2 * members + 3 * n_sub)
-    return {"max_abs_err": worst, "ms": times[128][0], "plain_ms": times[128][1],
-            **least_time(2 * 3 * 128 * 64 * 4 + 2 * n_sub * 128 * 64 * 4, ops, torch.float32),
-            "library_ms": None}
+    return times
+
+
+def k1_host_us(device: torch.device, calls: int = 1000) -> dict:
+    """The host's µs per call of each piece of one ``poe_subsets_cuda`` call
+    at M = 3, B = 128, D = 64, and of the whole call without and with a
+    gradient to record: ``time.perf_counter`` over ``calls`` back-to-back
+    calls of each (after 10 more), ending in a synchronize."""
+    mask = F.subset_mask_matrix(NAMES)
+    mus, lvs = torch.randn((3, 128, 64), device=device), torch.randn((3, 128, 64), device=device)
+    mus_g, lvs_g = mus.clone().requires_grad_(), lvs.clone().requires_grad_()
+    mu_out, lv_out = torch.empty((7, 128, 64), device=device), torch.empty((7, 128, 64), device=device)
+    masks = cuda_fusion._masks(mask, 3)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (mus.data_ptr(), lvs.data_ptr(), mu_out.data_ptr(), lv_out.data_ptr())
+
+    def enter_device():
+        with torch.cuda.device(device):
+            pass
+
+    pieces = {
+        "_check": lambda: cuda_fusion._check("mus", mus),
+        "_masks (built)": lambda: cuda_fusion._masks(mask, 3),
+        "new_empty": lambda: mus.new_empty((7, 128, 64)),
+        "torch.cuda.device": enter_device,
+        "current_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "ctypes call": lambda: lib.poe_subsets_f32(*ptrs, 3, 128, 64, masks, 0.0, stream),
+        "Function.apply": lambda: cuda_fusion._PoeSubsets.apply(mus, lvs, masks, 0.0),
+        "poe_subsets_cuda": lambda: cuda_fusion.poe_subsets_cuda(mus, lvs, mask),
+        "poe_subsets_cuda (grad)": lambda: cuda_fusion.poe_subsets_cuda(mus_g, lvs_g, mask),
+    }
+    out = {}
+    for name, fn in pieces.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+    print("K1 host µs per call, M=3 B=128 D=64 (perf_counter over 1000 calls): "
+          + ", ".join(f"{n} {t:.2f}" for n, t in out.items()))
+    return out
 
 
 def k1_bwd_against_plain(device: torch.device) -> dict:
@@ -380,6 +456,12 @@ def k2_against_plain(device: torch.device, card_line: str) -> dict:
               f"K2 {what}: max |Δ| {err.max().item():.3e} (max|ref| {ref.abs().max().item():.3e})")
         return err.max().item()
 
+    def within(got, ref, frac, what):  # |Δ| ≤ frac·max(1, |ref|)
+        err = (got.double() - ref.double()).abs()
+        check(bool((err <= frac * ref.double().abs().clamp(min=1.0)).all()),
+              f"K2 {what}: max |Δ| {err.max().item():.3e}")
+        return err.max().item()
+
     worst = dict.fromkeys(("texthead_fwd", "texthead_bwd_dh", "texthead_bwd_dw"), 0.0)
     for i, (shape, dtype) in enumerate(K2_CASES):
         h, k, b, t, g = k2_case(device, *shape, dtype, seed=20 + i)
@@ -401,11 +483,9 @@ def k2_against_plain(device: torch.device, card_line: str) -> dict:
                    ((lp, r_lp, "lp"), (lse, r_lse, "lse"))]
             grads = [close(x, r, 1e-4, 1e-5, f"{n} {tag}") for x, r, n in
                      ((dh, r_dh, "dh"), (dw, r_dw, "dW"), (db, r_db, "db"))]
-        else:
-            lp_err = (lp - r_lp).abs()
-            check(bool((lp_err <= 1e-3 * torch.clamp(r_lp.abs(), min=1.0)).all()),
-                  f"K2 lp {tag}: max |Δ| {lp_err.max().item():.3e}")
-            fwd = [lp_err.max().item()]
+        else:  # bf16 × bf16 products are exact in float32: the sums' order and ex2 differ
+            fwd = [within(x, r, 1e-5, f"{n} {tag}") for x, r, n in
+                   ((lp, r_lp, "lp"), (lse, r_lse, "lse"))]
             grads = [close(x, r, 0.0, 2e-2 * r.float().abs().max().item(), f"{n} {tag}")
                      for x, r, n in ((dh, r_dh, "dh"), (dw, r_dw, "dW"), (db, r_db, "db"))]
         worst["texthead_fwd"] = max(worst["texthead_fwd"], *fwd)
@@ -440,17 +520,19 @@ def k2_against_plain(device: torch.device, card_line: str) -> dict:
             lambda: (parts[0].sum(0), parts[1].sum(0))),
     }
     # the products: logits (2·R·C·V) in the forward; logits again and one
-    # more product in each backward kernel; bf16 operands on tensor cores.
-    # The partials are scratch of this design and count in no bound: the
-    # finalize's own bound is the writing of dW and db
+    # more product in each backward kernel; bf16 operands on tensor cores;
+    # and one exponential per logit in each. The partials are scratch of
+    # this design and count in no bound: the finalize's own bound is the
+    # writing of dW and db
     R, C, V = h.shape[0], h.shape[1], k.shape[1]
-    product = 2 * R * C * V
+    product, exps = 2 * R * C * V, R * V
     bounds = {
-        "texthead_fwd": least_time(nbytes(h, k, b, t) + 2 * R * 4, product, torch.bfloat16),
+        "texthead_fwd": least_time(nbytes(h, k, b, t) + 2 * R * 4, product, torch.bfloat16,
+                                   exps),
         "texthead_bwd_dh": least_time(nbytes(h, k, b, t, lse, g, h), 2 * product,
-                                      torch.bfloat16),
+                                      torch.bfloat16, exps),
         "texthead_bwd_dw": least_time(nbytes(h, k, b, t, lse, g, dw, db), 2 * product,
-                                      torch.bfloat16),
+                                      torch.bfloat16, exps),
         "texthead_bwd_dw_finalize": least_time(nbytes(dw, db), 0, torch.float32),
     }
     out = {}
@@ -1111,7 +1193,8 @@ def main() -> int:
     # atomics; a seed must give the same samples twice
     torch.backends.cudnn.deterministic = True
     card_line = card()
-    print(f"card: {card_line}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"card: {card_line}; max SM clock {sm_max_clock_hz() / 1e6:.0f} MHz; torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     lib = _build.load_library()

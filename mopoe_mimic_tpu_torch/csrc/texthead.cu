@@ -21,33 +21,51 @@
 // (R = 256 * 128 = 32768, C = 64, V = 3517) they would be 461 MB in
 // float32, written and read several times by the unfused head.
 //
-// What bounds it on this card: arithmetic. The forward is 2*R*C*V = 14.7
-// GFLOP against ~4 MB of inputs. The backward, as one function, is three
+// What bounds it on this card. The forward is 2*R*C*V = 14.7 GFLOP against
+// ~4 MB of inputs, ~0.015 ms at the bf16 tensor-core peak, but also R*V =
+// 115 M exponentials, ~0.028 ms on the SFUs of 132 SMs (16 a clock each):
+// the exponentials bound it. The backward, as one function, is three
 // products of that size (the logits recomputed, dlog @ W^T, h^T @ dlog):
 // 3 * 2*R*C*V = 44 GFLOP, ~0.045 ms at the bf16 tensor-core peak, plus
 // R*V = 115 M exponentials and their elementwise work for each of its two
-// kernels (2 * R*V = 230 M exps, ~0.06 ms on the SFUs of 132 SMs).
+// kernels (2 * R*V = 230 M exps, ~0.06 ms on the SFUs).
 //
-// Backward in bfloat16 (dtype 1, the training path): tensor cores.
-// The TPU kernel rounds dlog to h's dtype before both backward products
-// (pallas_texthead.py:101), so in bf16 every product is bf16 x bf16 with
-// float32 sums: what mma.sync computes. Only the order of the sums changes.
-// The kernels use mma.sync.m16n8k16 (bf16 in, f32 accumulators) fed by
-// ldmatrix, not wgmma: at C = 64 the logits product is four k-steps deep,
-// the exponentials and elementwise work on each logits tile weigh as much
-// as its products, and mma.sync keeps dlog in registers in the layout the
-// next product takes (below), where wgmma would need it in shared memory
-// or in its own register layout. The problem has the shape of a
-// FlashAttention backward: logits play QK^T, dlog plays dS, dh dQ, dW dK.
+// bfloat16 (dtype 1, the training path): tensor cores, forward and
+// backward. The TPU kernel rounds dlog to h's dtype before both backward
+// products (pallas_texthead.py:101), so in bf16 every product is bf16 x
+// bf16 with float32 sums: what mma.sync computes. Only the order of the
+// sums changes. The kernels use mma.sync.m16n8k16 (bf16 in, f32
+// accumulators) fed by ldmatrix, not wgmma: at C = 64 the logits product
+// is four k-steps deep, the exponentials and elementwise work on each
+// logits tile weigh as much as its products, and mma.sync keeps the logits
+// (and dlog) in registers in a layout the next step takes (below), where
+// wgmma would need them in shared memory or in its own register layout.
+// The problem has the shape of FlashAttention: logits play QK^T, the
+// forward's online logsumexp its online softmax, dlog dS, dh dQ, dW dK.
 //
+//  * texthead_fwd_tc: one block of 16 warps per 256 rows (every block
+//    reads all of W from L2; 128 blocks at the flagship), each warp one
+//    tile of 16 rows. The block stages its h rows
+//    in shared memory once, keeps each warp's A fragments in registers, and
+//    walks the vocabulary in tiles of 64 columns, half a tile at a time:
+//    the warp's 16 x 32 logits (accumulators started at the bias), then,
+//    for each of the lane's two rows, a running max m and sum l (an online
+//    logsumexp): m' = max(m, the lane's 8 logits), l = l 2^((m - m') log2
+//    e) + sum 2^(x log2 e - m' log2 e), one ex2 per logit and one per row
+//    per half tile, and the target's logit where the lane holds its
+//    column. At the end the four lanes of a quad, which share the rows,
+//    combine theirs with shuffles. The logits never leave registers; each
+//    row has one owner and there are no atomics. After each product comes
+//    a chain of dependent steps (max, ex2, sums) whose latency, more than
+//    the SFU's or the tensor cores' throughput, sets the pace: so one row
+//    tile a warp and many warps an SM (<= 128 registers, 16 warps), where
+//    dh gives a warp two row tiles to share each B fragment.
 //  * texthead_bwd_dh_tc: one block of 4 warps per 128 rows (256 blocks at
-//    the flagship), each warp two tiles of 16 rows, so that every B
-//    fragment read from shared memory serves two products (at C = 64; one
-//    tile at C <= 128, for the registers). The block stages its h tile in
-//    shared memory once, keeps each warp's A fragments in registers, and
-//    walks the vocabulary in tiles of 64 columns, half a tile at a time.
-//    Per half a warp computes its 16 x 32 logits per row tile (accumulators
-//    started at the bias), forms dlog in place and packs it to bf16 pairs:
+//    the flagship), each warp two tiles of 16 rows (at C = 64; one tile at
+//    C <= 128, for the registers), so that every B fragment read from
+//    shared memory serves two products; staged and walked as in the
+//    forward. Per half tile a warp computes its 16 x 32 logits per row tile,
+//    forms dlog in place and packs it to bf16 pairs:
 //    the m16n8 accumulator layout of two neighbouring n-tiles is the
 //    m16n8k16 A layout, so dlog goes straight from registers into
 //    dh += dlog @ W^T, and never to memory.
@@ -70,25 +88,27 @@
 //    that comes next loads into the other of two buffers while the current
 //    one computes, one barrier per tile. h's row chunks (dW) go by cp.async
 //    where h's rows are 16-byte aligned (C % 8 == 0, as at the flagship),
-//    else through registers. W's tiles (dh) go through registers: at
-//    V = 3517 (odd) the rows of W are only 2-byte aligned, below cp.async's
-//    4 bytes and TMA's 16-byte strides. A warp's rows all share one
-//    alignment, so it reads 4-byte words and, where they are off by one
+//    else through registers. W's tiles (forward, dh) go through registers:
+//    at V = 3517 (odd) the rows of W are only 2-byte aligned, below
+//    cp.async's 4 bytes and TMA's 16-byte strides. A warp's rows all share
+//    one alignment, so it reads 4-byte words and, where they are off by one
 //    element, realigns neighbouring words with a shuffle when it stores
-//    them, after the tile's products.
-//  * Ragged edges are masked in the kernels: rows past R (g = 0 and a
-//    vanishing exponential), columns past V (dlog = 0 in the last tile
-//    only), and C <= 128 zero-padded to a multiple of 16 in shared memory.
-//    No bias padding, no padded copies.
-//  * softmax as exp2(x * log2(e) - lse * log2(e)) on the SFU (ex2.approx,
-//    2 ulp): its error is far below the bf16 rounding of dlog that follows.
+//    them, after the tile's products. W itself must start 4-byte aligned.
+//  * Ragged edges are masked in the kernels: rows past R (not written in
+//    the forward; g = 0 and a vanishing exponential in the backward),
+//    columns past V (-inf logits in the forward, dlog = 0 in the backward,
+//    in the last tile only), and C <= 128 zero-padded to a multiple of 16
+//    in shared memory. No bias padding, no padded copies.
+//  * exponentials as exp2(x * log2(e) - c) on the SFU (ex2.approx, 2 ulp):
+//    their error is far below the forward's tolerance (1e-5 of lse) and the
+//    bf16 rounding of dlog.
 //
-// Float32 (dtype 0) and the forward run on the CUDA cores in float32: tensor
-// cores on float32 operands mean TF32 (about 3 digits), below the float32
-// gradients' tolerance. What that design does:
+// float32 (dtype 0) runs on the CUDA cores in float32, forward and
+// backward: tensor cores on float32 operands mean TF32 (about 3 digits),
+// below float32's tolerance. What that design does:
 //
-//  * texthead_fwd: one block per tile of 128 rows. The h tile is staged
-//    once in shared memory (C <= 128 is small); the block walks the
+//  * texthead_fwd_kernel: one block per tile of 128 rows. The h tile is
+//    staged once in shared memory (C <= 128 is small); the block walks the
 //    vocabulary in tiles of 64 columns of W through shared memory. Each
 //    thread owns an 8 x 4 micro-tile of logits and keeps, per row, an
 //    online max and sum (a running logsumexp) over the columns it sees and
@@ -98,13 +118,12 @@
 //    (no -1e30 bias padding as on the TPU, no row padding).
 //  * The TPU backward carries dW and db across a sequential grid in VMEM.
 //    Blocks here run in no order, so the backward is two kernels, each with
-//    one owner per output and no atomics (two runs give equal gradients);
-//    in float32:
-//    - texthead_bwd_dh: one block per tile of 128 rows; for each vocabulary
-//      tile it recomputes the logits, forms dlog in shared memory and
-//      accumulates dh = dlog @ W^T in registers;
-//    - texthead_bwd_dw: one block per tile of 32 vocabulary columns (110
-//      blocks at V = 3517 for the 132 SMs); it loops over all rows in
+//    one owner per output and no atomics (two runs give equal gradients):
+//    - texthead_bwd_dh_kernel: one block per tile of 128 rows; for each
+//      vocabulary tile it recomputes the logits, forms dlog in shared
+//      memory and accumulates dh = dlog @ W^T in registers;
+//    - texthead_bwd_dw_kernel: one block per tile of 32 vocabulary columns
+//      (110 blocks at V = 3517 for the 132 SMs); it loops over all rows in
 //      chunks of 64, recomputes that chunk's logits and dlog, and
 //      accumulates dW[:, tile] = h^T @ dlog and db[tile] in registers,
 //      adding each chunk's partial sums to the running sums by
@@ -135,32 +154,23 @@
 #define TW_TR (16 * TW_RM)
 #define TW_TV (16 * TW_CN)
 
-template <typename T>
-__device__ __forceinline__ float load_f(const T* p, long long i);
-template <>
-__device__ __forceinline__ float load_f<float>(const float* p, long long i) { return p[i]; }
-template <>
-__device__ __forceinline__ float load_f<__nv_bfloat16>(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
-
-// h rows [r0, r0 + TR) → hs[k * (TR + 1) + r] as float, zero beyond R
-template <typename T, int TR>
-__device__ __forceinline__ void load_h_tile(float* hs, const T* __restrict__ h, long long r0,
+// h rows [r0, r0 + TR) → hs[k * (TR + 1) + r], zero beyond R
+template <int TR>
+__device__ __forceinline__ void load_h_tile(float* hs, const float* __restrict__ h, long long r0,
                                             int R, int C) {
   for (int idx = threadIdx.x; idx < TR * C; idx += TH_THREADS) {
     const int r = idx / C, k = idx - r * C;
-    hs[k * (TR + 1) + r] = (r0 + r < R) ? load_f<T>(h, (r0 + r) * C + k) : 0.0f;
+    hs[k * (TR + 1) + r] = (r0 + r < R) ? h[(r0 + r) * C + k] : 0.0f;
   }
 }
 
 // W columns [v0, v0 + TV) → ws[k * (TV + 1) + c] and b → bs[c], zero beyond V
-template <typename T, int TV>
-__device__ __forceinline__ void load_w_tile(float* ws, float* bs, const T* __restrict__ W,
+template <int TV>
+__device__ __forceinline__ void load_w_tile(float* ws, float* bs, const float* __restrict__ W,
                                             const float* __restrict__ b, int v0, int C, int V) {
   for (int idx = threadIdx.x; idx < TV * C; idx += TH_THREADS) {
     const int k = idx / TV, c = idx - k * TV;
-    ws[k * (TV + 1) + c] = (v0 + c < V) ? load_f<T>(W, (long long)k * V + v0 + c) : 0.0f;
+    ws[k * (TV + 1) + c] = (v0 + c < V) ? W[(long long)k * V + v0 + c] : 0.0f;
   }
   for (int c = threadIdx.x; c < TV; c += TH_THREADS) bs[c] = (v0 + c < V) ? b[v0 + c] : 0.0f;
 }
@@ -202,14 +212,13 @@ __device__ __forceinline__ void tile_logits(const float* hs, const float* ws, co
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// forward in float32 (CUDA cores)
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(TH_THREADS)
-texthead_fwd_kernel(const T* __restrict__ h, const T* __restrict__ W, const float* __restrict__ b,
-                    const int* __restrict__ tgt, float* __restrict__ lp, float* __restrict__ lse,
-                    int R, int C, int V) {
+texthead_fwd_kernel(const float* __restrict__ h, const float* __restrict__ W,
+                    const float* __restrict__ b, const int* __restrict__ tgt,
+                    float* __restrict__ lp, float* __restrict__ lse, int R, int C, int V) {
   extern __shared__ float smem[];
   float* hs = smem;                         // [C][TH_TR + 1]
   float* ws = hs + C * (TH_TR + 1);         // [C][TH_TV + 1]
@@ -217,7 +226,7 @@ texthead_fwd_kernel(const T* __restrict__ h, const T* __restrict__ W, const floa
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long long r0 = (long long)blockIdx.x * TH_TR;
 
-  load_h_tile<T, TH_TR>(hs, h, r0, R, C);
+  load_h_tile<TH_TR>(hs, h, r0, R, C);
 
   float run_max[TH_RM], run_sum[TH_RM], tgt_logit[TH_RM];
   int t_row[TH_RM];
@@ -232,7 +241,7 @@ texthead_fwd_kernel(const T* __restrict__ h, const T* __restrict__ W, const floa
 
   for (int v0 = 0; v0 < V; v0 += TH_TV) {
     __syncthreads();  // the previous tile's readers are done
-    load_w_tile<T, TH_TV>(ws, bs, W, b, v0, C, V);
+    load_w_tile<TH_TV>(ws, bs, W, b, v0, C, V);
     __syncthreads();
     float acc[TH_RM][TH_CN];
     tile_logits<TH_RM, TH_CN>(hs, ws, bs, C, ty, tx, acc);
@@ -297,7 +306,7 @@ texthead_bwd_dh_kernel(const float* __restrict__ h, const float* __restrict__ W,
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const long long r0 = (long long)blockIdx.x * TH_TR;
 
-  load_h_tile<float, TH_TR>(hs, h, r0, R, C);
+  load_h_tile<TH_TR>(hs, h, r0, R, C);
 
   float row_lse[TH_RM], row_g[TH_RM];
   int t_row[TH_RM];
@@ -318,7 +327,7 @@ texthead_bwd_dh_kernel(const float* __restrict__ h, const float* __restrict__ W,
 
   for (int v0 = 0; v0 < V; v0 += TH_TV) {
     __syncthreads();
-    load_w_tile<float, TH_TV>(ws, bs, W, b, v0, C, V);
+    load_w_tile<TH_TV>(ws, bs, W, b, v0, C, V);
     __syncthreads();
     float acc[TH_RM][TH_CN];
     tile_logits<TH_RM, TH_CN>(hs, ws, bs, C, ty, tx, acc);
@@ -383,7 +392,7 @@ texthead_bwd_dw_kernel(const float* __restrict__ h, const float* __restrict__ W,
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int v0 = blockIdx.x * TW_TV;
 
-  load_w_tile<float, TW_TV>(ws, bs, W, b, v0, C, V);
+  load_w_tile<TW_TV>(ws, bs, W, b, v0, C, V);
 
   // dW accumulators: channels ty + 16 * i, columns tx + 16 * j; db for the
   // columns tx + 16 * j is summed by the threads with ty == 0. Each chunk's
@@ -400,7 +409,7 @@ texthead_bwd_dw_kernel(const float* __restrict__ h, const float* __restrict__ W,
 
   for (long long r0 = 0; r0 < R; r0 += TW_TR) {
     __syncthreads();  // the previous chunk's readers are done
-    load_h_tile<float, TW_TR>(hs, h, r0, R, C);
+    load_h_tile<TW_TR>(hs, h, r0, R, C);
     __syncthreads();
     float acc[TW_RM][TW_CN];
     tile_logits<TW_RM, TW_CN>(hs, ws, bs, C, ty, tx, acc);
@@ -485,6 +494,7 @@ texthead_bwd_dw_kernel(const float* __restrict__ h, const float* __restrict__ W,
 #define TC_LDW (TC_BN + 8)   // shared row stride of W and dlog tiles (bf16)
 #define TC_DH_THREADS 128
 #define TC_LOG2E 1.4426950408889634f
+#define TC_LN2 0.6931471805599453f
 #define TC_ONES 0x3F803F80u  // two bf16 1.0
 
 typedef __nv_bfloat16 bf16;
@@ -548,13 +558,14 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* __restrict__ p, long lon
 // are where k0 V is even; else the words one element earlier (and lane 31
 // the element after its word), each lane taking the second half of its word
 // and the first of its neighbour's when it stores them, not when it loads
-// them, so that the loads stay in flight during the products. The ragged
-// last tile reads 2-byte elements.
+// them, so that the loads stay in flight during the products: nothing reads
+// a loaded register before store(). The ragged last tile reads 2-byte
+// elements.
 template <int CP, int NT>
 struct WTile {
   static constexpr int N = CP * TC_BN / 2 / NT, DK = NT / (TC_BN / 2);
   uint32_t w[N];
-  uint32_t x[(N + 1) / 2];  // lane 31's elements after its words, two a register
+  uint32_t x[N];  // lane 31's element after each word, in the low 16 bits
   float b;
   bool odd;
 
@@ -567,13 +578,11 @@ struct WTile {
       odd = at0 & 1;  // the same for the warp: k0 is the warp's
       const bool extra = odd && (threadIdx.x & 31) == 31;
 #pragma unroll
-      for (int i = 0; i < (N + 1) / 2; ++i) x[i] = 0u;
-#pragma unroll
       for (int i = 0; i < N; ++i) {
         const long long at = at0 + (long long)i * DK * V;
         const bool row = k0 + i * DK < C;
         w[i] = row ? ld_pair(W, at - odd) : 0u;
-        x[i / 2] |= ld_u16(W, at + 1, row && extra) << (16 * (i % 2));
+        x[i] = ld_u16(W, at + 1, row && extra);
       }
     } else {
 #pragma unroll
@@ -581,6 +590,7 @@ struct WTile {
         const long long at = at0 + (long long)i * DK * V;
         const bool row = k0 + i * DK < C;
         w[i] = ld_u16(W, at, row && v < V) | (ld_u16(W, at + 1, row && v + 1 < V) << 16);
+        x[i] = 0u;
       }
     }
     const int c = v0 + (int)threadIdx.x;
@@ -594,9 +604,7 @@ struct WTile {
     for (int i = 0; i < N; ++i) {
       const int p = threadIdx.x + i * NT;
       const uint32_t next = __shfl_down_sync(TH_FULL_MASK, w[i], 1);
-      const uint32_t pair =
-          !odd ? w[i]
-               : __byte_perm(w[i], last_lane ? x[i / 2] >> (16 * (i % 2)) : next, 0x5432);
+      const uint32_t pair = !odd ? w[i] : __byte_perm(w[i], last_lane ? x[i] : next, 0x5432);
       *reinterpret_cast<uint32_t*>(ws + (p / (TC_BN / 2)) * TC_LDW + 2 * (p % (TC_BN / 2))) = pair;
     }
     if (threadIdx.x < TC_BN) bs[threadIdx.x] = b;
@@ -734,6 +742,143 @@ __device__ __forceinline__ void form_dlog(float (&acc)[4][4], const RowData& rd,
         if (RAGGED && col >= V) d = 0.0f;
         acc[n][2 * i + e] = d;
       }
+}
+
+// The forward's online logsumexp of the lane's two rows (q and q + 8 of
+// its warp's 16) over the columns the lane sees, in base 2: the running max
+// c of x log2 e, the sum l of 2^(x log2 e - c), and the target's logit where
+// the lane holds its column (0 elsewhere). Rows past R get the target -1
+// (never seen). c is the offset the terms were taken against, so a rescale
+// by 2^(c - c') is exact where c' = c (no drift over the tiles).
+struct RowLse {
+  float c[2], l[2], tl[2];
+  int t[2];
+
+  __device__ __forceinline__ void init(const int* __restrict__ tgt, long long row, int R) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      c[i] = -INFINITY;
+      l[i] = 0.0f;
+      tl[i] = 0.0f;
+      t[i] = row + 8 * i < R ? tgt[row + 8 * i] : -1;
+    }
+  }
+
+  // Fold in the logits of acc (columns col0 + 8n (+1), as warp_logits
+  // leaves them): one ex2 per logit and one per row. RAGGED masks the
+  // columns past V to -inf; a lane that has seen no column yet keeps
+  // c = -inf and l = 0, and takes its terms against 0, never -inf.
+  template <bool RAGGED>
+  __device__ __forceinline__ void update(float (&acc)[4][4], int col0, int V) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mn[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (RAGGED && col0 + 8 * n + e >= V) acc[n][2 * i + e] = -INFINITY;
+        mn[n] = fmaxf(acc[n][2 * i], acc[n][2 * i + 1]);
+      }
+      const float mx = fmaxf(fmaxf(mn[0], mn[1]), fmaxf(mn[2], mn[3]));  // a tree: short chains
+      const float cn = fmaxf(c[i], mx * TC_LOG2E);
+      const float off = cn == -INFINITY ? 0.0f : cn;
+      float part[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        part[n] = ex2(fmaf(acc[n][2 * i], TC_LOG2E, -off)) +
+                  ex2(fmaf(acc[n][2 * i + 1], TC_LOG2E, -off));
+      }
+      l[i] = fmaf(l[i], ex2(c[i] - off), (part[0] + part[1]) + (part[2] + part[3]));
+      c[i] = cn;
+      const unsigned rel = (unsigned)(t[i] - col0);  // the target is column col0 + 8n + e
+      if (rel < 32u && (rel & 6u) == 0u) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (rel == (unsigned)(8 * n + e)) tl[i] = acc[n][2 * i + e];
+      }
+    }
+  }
+
+  // Row i's lse and lp from the four lanes of the quad, which share the row
+  // (every lane calls it; the shuffles need the whole warp). A lane that saw
+  // no column (c = -inf, l = 0) adds 0.
+  __device__ __forceinline__ void finish(int i, float& out_lse, float& out_lp) const {
+    float cq = fmaxf(c[i], __shfl_xor_sync(TH_FULL_MASK, c[i], 1));
+    cq = fmaxf(cq, __shfl_xor_sync(TH_FULL_MASK, cq, 2));
+    const float off = cq == -INFINITY ? 0.0f : cq;
+    float lq = l[i] * ex2(c[i] - off);
+    lq += __shfl_xor_sync(TH_FULL_MASK, lq, 1);
+    lq += __shfl_xor_sync(TH_FULL_MASK, lq, 2);
+    float tq = tl[i] + __shfl_xor_sync(TH_FULL_MASK, tl[i], 1);
+    tq += __shfl_xor_sync(TH_FULL_MASK, tq, 2);
+    out_lse = fmaf(off, TC_LN2, logf(lq));  // ln(sum e^x) = c ln 2 + ln(l)
+    out_lp = tq - out_lse;
+  }
+};
+
+// lp and lse for NW warps of 16 rows a block, C <= 16 * KT.
+template <int KT, int NW>
+__global__ void __launch_bounds__(32 * NW)
+texthead_fwd_tc(const bf16* __restrict__ h, const bf16* __restrict__ W,
+                const float* __restrict__ b, const int* __restrict__ tgt,
+                float* __restrict__ lp, float* __restrict__ lse, int R, int C, int V) {
+  constexpr int CP = 16 * KT, LDH = CP + 8, NT = 32 * NW, BM = 16 * NW;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* hs = reinterpret_cast<bf16*>(tc_smem);                 // [BM][LDH]
+  bf16* ws = hs + BM * LDH;                                    // [2][CP][TC_LDW]
+  float* bs = reinterpret_cast<float*>(ws + 2 * CP * TC_LDW);  // [2][TC_BN]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, s = lane & 3;
+  const long long r0 = (long long)blockIdx.x * BM;
+  const int tiles = (V + TC_BN - 1) / TC_BN;
+
+  {
+    HTile<CP, BM, NT> ht;
+    ht.fetch(h, r0, R, C);
+    ht.store(hs, LDH);
+  }
+  WTile<CP, NT> next;
+  next.fetch(W, b, 0, C, V);
+  next.store(ws, bs);
+  __syncthreads();
+
+  // the warp's rows r0 + 16 warp .. + 15
+  uint32_t ha[1][KT][4];
+  RowLse st;
+  load_rows_a<KT>(ha[0], hs + 16 * warp * LDH, LDH, lane);
+  st.init(tgt, r0 + 16 * warp + (lane >> 2), R);
+
+  for (int j = 0; j < tiles; ++j) {
+    const int buf = j & 1, v0 = j * TC_BN;
+    const bool more = j + 1 < tiles;
+    if (more) next.fetch(W, b, v0 + TC_BN, C, V);  // in flight during this tile's products
+    const bf16* wt = ws + buf * CP * TC_LDW;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float acc[1][4][4];
+      warp_logits<KT, 1>(ha, wt, bs + buf * TC_BN, hf, lane, acc);
+      if (v0 + TC_BN <= V) {
+        st.update<false>(acc[0], v0 + 32 * hf + 2 * s, V);
+      } else {
+        st.update<true>(acc[0], v0 + 32 * hf + 2 * s, V);
+      }
+    }
+    if (more) next.store(ws + (buf ^ 1) * CP * TC_LDW, bs + (buf ^ 1) * TC_BN);
+    __syncthreads();  // the next tile is in place, this one's readers are done
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float row_lse, row_lp;
+    st.finish(i, row_lse, row_lp);
+    const long long r = r0 + 16 * warp + (lane >> 2) + 8 * i;
+    if (s == 0 && r < R) {
+      lse[r] = row_lse;
+      lp[r] = row_lp;
+    }
+  }
 }
 
 // dh = dlog @ W^T for 4 warps of 16 RT rows a block, C <= 16 * KT.
@@ -1038,15 +1183,14 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T>
 int launch_fwd(const void* h, const void* W, const float* b, const int* tgt, float* lp,
                float* lse, int R, int C, int V, cudaStream_t stream) {
   const size_t smem = fwd_smem(C);
-  cudaError_t err = allow_smem(texthead_fwd_kernel<T>, smem);
+  cudaError_t err = allow_smem(texthead_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((R + TH_TR - 1) / TH_TR);
-  texthead_fwd_kernel<T><<<blocks, TH_THREADS, smem, stream>>>(
-      (const T*)h, (const T*)W, b, tgt, lp, lse, R, C, V);
+  texthead_fwd_kernel<<<blocks, TH_THREADS, smem, stream>>>(
+      (const float*)h, (const float*)W, b, tgt, lp, lse, R, C, V);
   return (int)cudaGetLastError();
 }
 
@@ -1071,6 +1215,29 @@ int launch_dw(const void* h, const void* W, const float* b, const int* tgt, cons
   const unsigned blocks = (unsigned)((V + TW_TV - 1) / TW_TV);
   texthead_bwd_dw_kernel<CJ><<<blocks, TH_THREADS, smem, stream>>>(
       (const float*)h, (const float*)W, b, tgt, lse, g, dW, db, R, C, V);
+  return (int)cudaGetLastError();
+}
+
+template <int KT, int NW>
+size_t fwd_tc_smem() {
+  constexpr int CP = 16 * KT, BM = 16 * NW;
+  return sizeof(bf16) * (BM * (CP + 8) + 2 * CP * TC_LDW) + sizeof(float) * 2 * TC_BN;
+}
+
+// Warps a block of texthead_fwd_tc, 16 rows each: every block reads all of
+// W from L2, so many rows a block (R = 32768: 128 blocks for 132 SMs)
+constexpr int FWD_NW = 16;
+
+template <int KT>
+int launch_fwd_tc(const void* h, const void* W, const float* b, const int* tgt, float* lp,
+                  float* lse, int R, int C, int V, cudaStream_t stream) {
+  constexpr int BM = 16 * FWD_NW;
+  const size_t smem = fwd_tc_smem<KT, FWD_NW>();
+  cudaError_t err = allow_smem(texthead_fwd_tc<KT, FWD_NW>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((R + BM - 1) / BM);
+  texthead_fwd_tc<KT, FWD_NW><<<blocks, 32 * FWD_NW, smem, stream>>>(
+      (const bf16*)h, (const bf16*)W, b, tgt, lp, lse, R, C, V);
   return (int)cudaGetLastError();
 }
 
@@ -1154,13 +1321,18 @@ int dw_splits(int R, int V, int row_chunk) {
 
 }  // namespace
 
+// dtype 1 (bf16): the tensor-core kernel; dtype 0: the float32 CUDA-core one
 extern "C" int texthead_fwd(const void* h, const void* W, const float* b, const int* tgt,
                             float* lp, float* lse, int R, int C, int V, int dtype,
                             cudaStream_t stream) {
   if (bad_shape(R, C, V, dtype)) return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
-  return dtype == 0 ? launch_fwd<float>(h, W, b, tgt, lp, lse, R, C, V, stream)
-                    : launch_fwd<__nv_bfloat16>(h, W, b, tgt, lp, lse, R, C, V, stream);
+  if (dtype == 1) {  // C zero-padded to 64 or 128; W read as 4-byte words
+    if ((uintptr_t)W % 4 != 0) return (int)cudaErrorMisalignedAddress;
+    return C <= 64 ? launch_fwd_tc<4>(h, W, b, tgt, lp, lse, R, C, V, stream)
+                   : launch_fwd_tc<8>(h, W, b, tgt, lp, lse, R, C, V, stream);
+  }
+  return launch_fwd(h, W, b, tgt, lp, lse, R, C, V, stream);
 }
 
 // dtype 1 (bf16): the tensor-core kernel; dtype 0: the float32 CUDA-core one

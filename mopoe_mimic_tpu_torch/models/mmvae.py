@@ -18,7 +18,9 @@ The subset PoE goes through the hand-written CUDA kernels (forward and
 backward) when ``cfg.use_pallas_fusion`` is set and the posteriors are on
 a CUDA device, and through the plain PyTorch version otherwise
 (mmvae.py:184-193 of the JAX package). The posteriors are cast to float32
-before fusion. ``cfg.fused_pointwise`` builds every residual block with the
+before fusion. The power set and subset mask of each tuple of modalities
+are built once (``ops/fusion.subset_layout``), as is the kernel's view of
+the mask. ``cfg.fused_pointwise`` builds every residual block with the
 fused BN → ReLU → 1×1 conv (K3) for train mode (mmvae.py:83, 102, 119,
 134). Factorized (style) representations and the char text encoding are
 not ported yet.
@@ -103,10 +105,9 @@ class MMVae(nn.Module):
         content = self.encode(batch)
         mus = torch.stack([content[m][0] for m in present])      # [M, B, D]
         logvars = torch.stack([content[m][1] for m in present])  # [M, B, D]
-        subsets = F.subset_powerset(present)
+        subsets, mask = F.subset_layout(present)
 
         if method.uses_poe_fusion:
-            mask = F.subset_mask_matrix(present)
             prior = method is Method.POE
             if cfg.use_pallas_fusion and mus.is_cuda:
                 s_mu, s_lv = poe_subsets_cuda(mus, logvars, mask, prior_expert=prior)

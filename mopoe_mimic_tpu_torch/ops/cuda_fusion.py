@@ -7,10 +7,19 @@ its gradient (pallas_fusion.py:86-92). The kernels are
 ``poe_subsets_bwd_f32`` (backward), joined by a ``torch.autograd.Function``.
 Their plain PyTorch versions are ``ops/fusion.poe_subsets`` and
 ``ops/fusion.poe_subsets_bwd``.
+
+The kernels take microseconds; the host's work around a launch is what a
+call costs. So the wrapper does no repeated work: the ``SubsetMasks`` of a
+mask is built once per (mask contents, experts) and cached
+(``subset_masks``), the current device is entered only when it is not the
+tensors' own, and a forward that needs no gradient skips
+``autograd.Function.apply``. Every check still runs on every call.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -25,6 +34,7 @@ LAUNCHES = {"poe_subsets_f32": 0, "poe_subsets_bwd_f32": 0}
 
 
 def _masks(subset_mask: np.ndarray, n_experts: int) -> _build.SubsetMasks:
+    """The kernels' member bitmasks of ``subset_mask`` [S, M], built anew."""
     rows = subset_members(subset_mask)
     if np.asarray(subset_mask).shape[1] != n_experts:
         raise ValueError(
@@ -36,6 +46,21 @@ def _masks(subset_mask: np.ndarray, n_experts: int) -> _build.SubsetMasks:
     for s, members in enumerate(rows):
         masks.members[s] = sum(1 << m for m in members)
     return masks
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_masks(dtype: str, shape: Tuple[int, ...], data: bytes,
+                  n_experts: int) -> _build.SubsetMasks:
+    mask = np.frombuffer(data, dtype=np.dtype(dtype)).reshape(shape)
+    return _masks(mask, n_experts)
+
+
+def subset_masks(subset_mask: np.ndarray, n_experts: int) -> _build.SubsetMasks:
+    """``_masks``, built once per (mask contents, ``n_experts``): keyed by
+    the mask's dtype, shape and bytes, so equal masks share one entry
+    whatever array holds them. The kernels take it by value."""
+    mask = np.ascontiguousarray(subset_mask)
+    return _cached_masks(mask.dtype.str, mask.shape, mask.tobytes(), n_experts)
 
 
 def _check(name: str, x: torch.Tensor) -> None:
@@ -57,18 +82,33 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _on(device: torch.device):
+    """``torch.cuda.device(device)`` where it is not the current device
+    already; else nothing to enter."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _poe_subsets_fwd(mus, logvars, masks: _build.SubsetMasks,
+                     prior_t: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``poe_subsets_f32``: mu, logvar [S, B, D] from mus, logvars [M, B, D]."""
+    n_experts, batch, dim = mus.shape
+    mu_out = mus.new_empty((masks.n_subsets, batch, dim))
+    lv_out = torch.empty_like(mu_out)
+    with _on(mus.device):
+        _launch("poe_subsets_f32", mus.data_ptr(), logvars.data_ptr(), mu_out.data_ptr(),
+                lv_out.data_ptr(), n_experts, batch, dim, masks, prior_t)
+    return mu_out, lv_out
+
+
 class _PoeSubsets(torch.autograd.Function):
     """Forward: ``poe_subsets_f32``; backward: ``poe_subsets_bwd_f32``,
     recomputing from the saved inputs (mus, logvars)."""
 
     @staticmethod
     def forward(ctx, mus, logvars, masks, prior_t):
-        n_experts, batch, dim = mus.shape
-        mu_out = mus.new_empty((masks.n_subsets, batch, dim))
-        lv_out = torch.empty_like(mu_out)
-        with torch.cuda.device(mus.device):
-            _launch("poe_subsets_f32", mus.data_ptr(), logvars.data_ptr(), mu_out.data_ptr(),
-                    lv_out.data_ptr(), n_experts, batch, dim, masks, prior_t)
+        mu_out, lv_out = _poe_subsets_fwd(mus, logvars, masks, prior_t)
         ctx.save_for_backward(mus, logvars)
         ctx.masks, ctx.prior_t = masks, prior_t
         return mu_out, lv_out
@@ -89,7 +129,7 @@ def poe_subsets_bwd_cuda(mus, logvars, dmu_s, dlv_s, masks: _build.SubsetMasks,
     n_experts, batch, dim = mus.shape
     dmu = torch.empty_like(mus)
     dlv = torch.empty_like(mus)
-    with torch.cuda.device(mus.device):
+    with _on(mus.device):
         _launch("poe_subsets_bwd_f32", mus.data_ptr(), logvars.data_ptr(), dmu_s.data_ptr(),
                 dlv_s.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n_experts, batch, dim,
                 masks, prior_t)
@@ -104,7 +144,7 @@ def poe_subsets_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on mus, logvars [M, B, D] (f32, contiguous, one CUDA device).
     Returns mu, logvar [S, B, D]; differentiable through the backward
-    kernel."""
+    kernel where grad mode is on and an input requires grad."""
     _check("mus", mus)
     _check("logvars", logvars)
     if mus.shape != logvars.shape or mus.device != logvars.device:
@@ -112,5 +152,8 @@ def poe_subsets_cuda(
     n_experts = mus.shape[0]
     if not 1 <= n_experts <= _build.MAX_EXPERTS:
         raise ValueError(f"{n_experts} experts; the kernel takes 1..{_build.MAX_EXPERTS}")
-    masks = _masks(subset_mask, n_experts)
-    return _PoeSubsets.apply(mus, logvars, masks, prior_precision(prior_expert))
+    masks = subset_masks(subset_mask, n_experts)
+    prior_t = prior_precision(prior_expert)
+    if torch.is_grad_enabled() and (mus.requires_grad or logvars.requires_grad):
+        return _PoeSubsets.apply(mus, logvars, masks, prior_t)
+    return _poe_subsets_fwd(mus, logvars, masks, prior_t)

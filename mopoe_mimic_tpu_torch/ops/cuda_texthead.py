@@ -8,11 +8,13 @@ Replaces the Pallas TPU kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
 versions are ``ops/texthead.texthead_fwd_plain`` and
 ``texthead_bwd_plain``.
 
-In bfloat16 the backward runs on tensor cores, and ``texthead_bwd_dw``
-splits the rows across blocks: it writes each split's partial dW and db,
-and ``texthead_bwd_dw_finalize`` sums them in a fixed order. In float32
-both backward kernels run on the CUDA cores and ``texthead_bwd_dw`` writes
-dW and db itself.
+In bfloat16 the forward and the backward run on tensor cores (the
+forward with an online logsumexp, the logits never in memory), and
+``texthead_bwd_dw`` splits the rows across blocks: it writes each split's
+partial dW and db, and ``texthead_bwd_dw_finalize`` sums them in a fixed
+order. In float32 all three run on the CUDA cores and ``texthead_bwd_dw``
+writes dW and db itself. A bfloat16 kernel must start 4-byte aligned:
+there is no other path to fall back to.
 """
 
 from __future__ import annotations

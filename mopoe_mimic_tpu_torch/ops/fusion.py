@@ -11,9 +11,11 @@ the Pallas kernel: prior first, then members in ascending index order.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
-from typing import Dict, List, Sequence, Tuple
+from types import MappingProxyType
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +46,17 @@ def subset_mask_matrix(mod_names: Sequence[str]) -> np.ndarray:
     for row, members in enumerate(subsets.values()):
         mask[row, list(members)] = 1.0
     return mask
+
+
+@functools.lru_cache(maxsize=64)
+def subset_layout(mod_names: Tuple[str, ...]) -> Tuple[Mapping[str, Tuple[int, ...]], np.ndarray]:
+    """``subset_powerset`` and ``subset_mask_matrix`` of ``mod_names``, built
+    once per tuple of names and shared by every caller: a read-only mapping
+    and a read-only array, so that no caller can change what the next one
+    gets."""
+    mask = subset_mask_matrix(mod_names)
+    mask.setflags(write=False)
+    return MappingProxyType(subset_powerset(mod_names)), mask
 
 
 def subset_members(subset_mask: np.ndarray) -> List[Tuple[int, ...]]:

@@ -15,7 +15,9 @@ may differ); K1 backward 1e-5·max(1, |ref|) (FMA contraction in the
 kernel). K2 in float32 with TF32 off: lp rtol 1e-5 atol 1e-5, gradients
 rtol 1e-4 atol 1e-5 (tests/test_pallas_texthead.py's bounds), against the
 plain pair accumulated in float64; in bfloat16 against the plain pair fed
-the same bfloat16 inputs: lp |Δ| ≤ 1e-3·max(1, |ref|), gradients
+the same bfloat16 inputs: lp and lse |Δ| ≤ 1e-5·max(1, |ref|) (the forward
+runs on tensor cores; bf16 × bf16 products are exact in float32, so only
+the order of the sums and the SFU's ex2 differ), gradients
 |Δ| ≤ 2e-2·max|ref| (the bfloat16 backward runs on tensor cores: the same
 products in another order), and two runs bitwise equal. K3 in float32 with TF32 off against the plain
 versions accumulated in float64: y and dx rtol 1e-5, dW, dcb, dγ, dβ rtol
@@ -29,6 +31,8 @@ import torch
 
 import chip_smoke
 
+from mopoe_mimic_tpu_torch.config import MopoeConfig
+from mopoe_mimic_tpu_torch.models.mmvae import MMVae
 from mopoe_mimic_tpu_torch.models.resblocks import ResidualBlock2dConv
 from mopoe_mimic_tpu_torch.ops import cuda_fusion, cuda_pointwise, cuda_texthead
 from mopoe_mimic_tpu_torch.ops import fusion as F
@@ -93,6 +97,36 @@ def test_backward_kernel_matches_plain_and_autograd(device, m, b, prior):
             assert bool(((g - r).abs() <= bound).all()), float((g - r).abs().max())
 
 
+@pytest.mark.parametrize("grad", [False, True])
+def test_inference_launches_k1_once_a_call(device, grad, monkeypatch):
+    """MMVae.inference on the card: one poe_subsets_f32 launch a call, with
+    or without a gradient to record, and equal results every call (the
+    subset layout and the kernel's masks come from their caches)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = MopoeConfig(method="joint_elbo", img_size=64, DIM_img=4, DIM_text=4, class_dim=4,
+                      text_encoding="word", vocab_size=30, batch_size=4,
+                      compute_dtype="float32")
+    torch.manual_seed(0)
+    model = MMVae(cfg).to(device).eval()
+    rng = np.random.default_rng(0)
+    batch = {"PA": rng.random((4, 1, 64, 64), dtype=np.float32),
+             "Lateral": rng.random((4, 1, 64, 64), dtype=np.float32),
+             "text": rng.integers(0, 30, (4, 128))}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    outs = []
+    for _ in range(3):
+        before = cuda_fusion.LAUNCHES["poe_subsets_f32"]
+        with torch.set_grad_enabled(grad):
+            outs.append(model.inference(batch))
+        assert cuda_fusion.LAUNCHES["poe_subsets_f32"] == before + 1
+    assert list(outs[0]["subsets"]) == list(F.subset_powerset(cfg.modality_names))
+    for out in outs[1:]:
+        for key, (mu, lv) in outs[0]["subsets"].items():
+            assert torch.equal(out["subsets"][key][0], mu)
+            assert torch.equal(out["subsets"][key][1], lv)
+        assert all(torch.equal(a, b) for a, b in zip(out["joint"], outs[0]["joint"]))
+
+
 def test_kernel_refuses_what_it_does_not_take(device):
     mask = F.subset_mask_matrix(NAMES)
     x = torch.zeros((3, 4, 8), device=device)
@@ -145,6 +179,63 @@ def test_texthead_kernels_match_plain_bf16(device, shape):
     for got, ref in zip((dh, dw, db), refs):
         err = (got.float() - ref.float()).abs().max()
         assert float(err) <= 2e-2 * float(ref.float().abs().max())
+
+
+def _k2_fwd_case(device, R, C, V, equal_bias, seed):
+    """bf16 forward inputs with rows that probe the online logsumexp: the
+    targets of rows 0 and R − 1 at columns 0 and V − 1; row 1 all equal
+    logits where the bias is constant (h = 0); row 2 with its maximum at
+    column V − 1, in the ragged last vocabulary tile where V % 64 != 0."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(R, C))
+    w = rng.normal(size=(C, V)) * 0.1
+    b = np.full((V,), 0.25) if equal_bias else rng.normal(size=(V,)) * 0.1
+    t = rng.integers(0, V, size=(R,))
+    t[0], t[-1] = 0, V - 1
+    h[1] = 0.0
+    w[:, V - 1] = 1.0
+    h[2] = 1.0
+    return (torch.from_numpy(h).to(device, torch.bfloat16),
+            torch.from_numpy(w).to(device, torch.bfloat16),
+            torch.from_numpy(b).to(device, torch.float32),
+            torch.from_numpy(t).to(device, torch.int32))
+
+
+@pytest.mark.parametrize("equal_bias", [False, True])
+@pytest.mark.parametrize("R,C,V", [(51, 10, 37), (257, 24, 300), (1000, 64, 3517),
+                                   (129, 128, 300), (4099, 128, 3517), (32768, 64, 3517),
+                                   (32768 + 77, 64, 37)])
+def test_texthead_fwd_bf16_matches_plain(device, R, C, V, equal_bias):
+    """The tensor-core forward against the plain pair on the same bf16
+    inputs: R not a multiple of the block's rows, V = 37, 300 and 3517 (odd:
+    W's rows off 4-byte alignment), C = 10, 24, 64, 128; two runs bitwise
+    equal."""
+    h, k, b, t = _k2_fwd_case(device, R, C, V, equal_bias, seed=R + C + V)
+    before = cuda_texthead.LAUNCHES["texthead_fwd"]
+    lp, lse = cuda_texthead.texthead_fwd_cuda(h, k, b, t)
+    again = cuda_texthead.texthead_fwd_cuda(h, k, b, t)
+    assert cuda_texthead.LAUNCHES["texthead_fwd"] == before + 2
+    r_lp, r_lse = TH.texthead_fwd_plain(h, k, b, t)
+    torch.cuda.synchronize()
+    assert torch.equal(lp, again[0]) and torch.equal(lse, again[1])
+    for got, ref in ((lp, r_lp), (lse, r_lse)):
+        err = (got.double() - ref.double()).abs()
+        assert bool((err <= 1e-5 * ref.double().abs().clamp(min=1.0)).all()), float(err.max())
+    assert int((h[2].float() @ k.float() + b).argmax()) == V - 1  # row 2's maximum, last tile
+    if equal_bias:  # row 1: V equal logits
+        assert abs(float(lse[1]) - (0.25 + np.log(V))) <= 1e-5 * (0.25 + np.log(V))
+
+
+def test_texthead_fwd_bf16_refuses_a_misaligned_kernel(device):
+    """No fallback: the tensor-core forward reads W as 4-byte words, and a W
+    that starts off that alignment is refused by the launch itself."""
+    h, k, b, t = _k2_fwd_case(device, 16, 16, 40, False, seed=2)
+    odd = torch.zeros(16 * 40 + 1, device=device, dtype=torch.bfloat16)[1:].view(16, 40)
+    odd.copy_(k)
+    before = cuda_texthead.LAUNCHES["texthead_fwd"]
+    with pytest.raises(RuntimeError, match="texthead_fwd launch failed"):
+        cuda_texthead.texthead_fwd_cuda(h, odd, b, t)
+    assert cuda_texthead.LAUNCHES["texthead_fwd"] == before
 
 
 def test_texthead_backward_is_deterministic(device):

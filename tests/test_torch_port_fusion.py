@@ -9,7 +9,9 @@ operations in the same order, so only exp/log rounding may differ.
 Gradients (K1's backward: autograd of the plain forward and the closed
 form ``poe_subsets_bwd`` that the CUDA backward computes) are held against
 ``jax.vjp`` of the Pallas kernel at 1e-5·max(1, |ref|): another order of
-operations. KL divergences and log-probabilities: rtol 1e-5.
+operations. KL divergences and log-probabilities: rtol 1e-5. K1's host-side
+caches (the kernel's member bitmasks per mask, the power set and mask per
+tuple of modalities) are held to fresh constructions, and shown read-only.
 """
 
 import jax
@@ -25,6 +27,7 @@ from mopoe_mimic_tpu.ops.pallas_fusion import poe_subsets_pallas
 from mopoe_mimic_tpu_torch.ops import distributions as TD
 from mopoe_mimic_tpu_torch.ops import fusion as TF
 from mopoe_mimic_tpu_torch.ops import kl as TK
+from mopoe_mimic_tpu_torch.ops import cuda_fusion as CF
 from mopoe_mimic_tpu_torch.ops.cuda_fusion import poe_subsets_cuda
 from mopoe_mimic_tpu_torch.ops.sampling import reparameterize
 
@@ -101,6 +104,70 @@ def test_poe_subsets_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="not a CUDA device"):
         poe_subsets_cuda(torch.from_numpy(mus), torch.from_numpy(lvs),
                          TF.subset_mask_matrix(NAMES))
+
+
+def _masks_of(m):
+    """Every subset mask of m modalities the tests feed K1: the power set,
+    each of its rows alone, and its rows in reverse order."""
+    full = TF.subset_mask_matrix(NAMES[:m])
+    return [full, full[::-1]] + [full[i:i + 1] for i in range(full.shape[0])]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_cached_subset_masks_equal_a_fresh_construction(m):
+    for mask in _masks_of(m):
+        cached, fresh = CF.subset_masks(mask, m), CF._masks(mask, m)
+        assert cached.n_subsets == fresh.n_subsets == mask.shape[0]
+        assert list(cached.members) == list(fresh.members)
+        assert CF.subset_masks(mask, m) is cached  # built once
+
+
+def test_subset_masks_share_an_entry_for_equal_contents():
+    a = TF.subset_mask_matrix(NAMES)
+    b = np.array(a, copy=True)  # another array, the same contents
+    assert b is not a and CF.subset_masks(a, 3) is CF.subset_masks(b, 3)
+    assert CF.subset_masks(a, 3) is CF.subset_masks(TF.subset_layout(NAMES)[1], 3)
+    other = a[::-1]  # the same rows in another order: other contents
+    assert CF.subset_masks(other, 3) is not CF.subset_masks(a, 3)
+    assert list(CF.subset_masks(other, 3).members)[:7] == list(CF._masks(a, 3).members)[:7][::-1]
+    b[0, 1] = 1.0  # a mask changed after its first use gets its own entry
+    assert CF.subset_masks(b, 3) is not CF.subset_masks(a, 3)
+    assert CF.subset_masks(b, 3).members[0] == 0b011
+
+
+def test_subset_masks_refuse_on_every_call():
+    """Nothing is cached for a mask that the kernel does not take."""
+    for _ in range(2):
+        with pytest.raises(ValueError, match="columns"):
+            CF.subset_masks(TF.subset_mask_matrix(NAMES[:2]), 3)
+        with pytest.raises(ValueError, match="subsets"):
+            CF.subset_masks(np.ones((256, 2), np.float32), 2)
+
+
+@pytest.mark.parametrize("names", [NAMES[:1], NAMES[:2], NAMES, ("text", "PA")])
+def test_subset_layout_is_cached_and_read_only(names):
+    subsets, mask = TF.subset_layout(names)
+    assert TF.subset_layout(tuple(names)) == (subsets, mask)
+    assert TF.subset_layout(tuple(names))[1] is mask
+    assert dict(subsets) == TF.subset_powerset(names)
+    np.testing.assert_array_equal(mask, TF.subset_mask_matrix(names))
+    assert not mask.flags.writeable
+    with pytest.raises(ValueError):
+        mask[0, 0] = 0.0
+    with pytest.raises(TypeError):
+        subsets["x"] = (0,)
+    with pytest.raises(TypeError):
+        del subsets[next(iter(subsets))]
+    assert TF.subset_layout(tuple(names))[0] == TF.subset_powerset(names)
+
+
+def test_poe_subsets_cuda_refuses_cpu_tensors_with_a_warm_cache():
+    mask = TF.subset_layout(NAMES)[1]
+    CF.subset_masks(mask, 3)
+    mus, lvs = _posteriors(3, 4, seed=1)
+    for x in (torch.from_numpy(mus), torch.from_numpy(mus).requires_grad_()):
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            poe_subsets_cuda(x, torch.from_numpy(lvs), mask)
 
 
 def _close_grad(got, ref):

@@ -142,6 +142,7 @@ def test_chip_smoke_k2_phase_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(ct, "texthead_bwd_dw_cuda", lambda *a: finalize(*partials(*a)))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, calls=1, warmup=0: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "sm_max_clock_hz", lambda: 1.98e9)
     monkeypatch.setattr(chip_smoke, "FLAGSHIP_HEAD", (2, 8, 16, 40))
     monkeypatch.setattr(chip_smoke, "K2_CASES", (((3, 17, 10, 37), torch.float32),
                                                  ((3, 17, 10, 37), torch.bfloat16),
@@ -159,54 +160,115 @@ def test_chip_smoke_k2_phase_rehearses_on_cpu(monkeypatch):
     assert out["texthead_fwd"]["head_ms"].keys() == {"fused_fwd", "fused_fwd_bwd",
                                                      "unfused_fwd", "unfused_fwd_bwd"}
     assert out["texthead_bwd_dw"]["splits"] == 2 and out["texthead_bwd_dw"]["partials_ms"] == 1.0
-    # dW's bound at R = 16, C = 16, V = 40: two products at the bf16 peak
-    # against h, W (bf16), b, t, lse, g read and dW, db written once
+    # dW's bound at R = 16, C = 16, V = 40: two products at the bf16 peak,
+    # R·V exponentials on the SFUs, against h, W (bf16), b, t, lse, g read
+    # and dW, db written once
     R, C, V = 16, 16, 40
     moved = R * C * 2 + C * V * 2 + V * 4 + R * 4 * 3 + (C * V + V) * 4
     assert out["texthead_bwd_dw"]["bound_ms"] == pytest.approx(max(
-        moved / chip_smoke.HBM_BYTES_PER_S, 2 * 2 * R * C * V / 989e12) * 1e3)
+        moved / chip_smoke.HBM_BYTES_PER_S, 2 * 2 * R * C * V / 989e12,
+        R * V / (132 * 16 * 1.98e9)) * 1e3)
+    assert out["texthead_bwd_dw"]["bound_by"] == "bytes"
     assert out["texthead_bwd_dw_finalize"]["bound_ms"] == pytest.approx(
         (C * V + V) * 4 / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_chip_smoke_bounds_count_exponentials(monkeypatch):
+    """least_time at the flagship head (R = 32768, C = 64, V = 3517, bf16):
+    the forward's R·V exponentials on the SFUs (132 SMs × 16 a clock at
+    1980 MHz) outweigh its product at the bf16 peak; each backward kernel's
+    two products outweigh its exponentials; no exponentials, no third term."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "sm_max_clock_hz", lambda: 1.98e9)
+    R, C, V = 32768, 64, 3517
+    moved = R * C * 2 + C * V * 2 + V * 4 + R * 4 * 3
+    fwd = chip_smoke.least_time(moved, 2 * R * C * V, torch.bfloat16, R * V)
+    assert fwd["bound_by"] == "exponentials"
+    assert fwd["bound_ms"] == pytest.approx(R * V / (132 * 16 * 1.98e9) * 1e3)
+    assert 0.0275 < fwd["bound_ms"] < 0.0277
+    bwd = chip_smoke.least_time(moved, 4 * R * C * V, torch.bfloat16, R * V)
+    assert bwd["bound_by"] == "operations"
+    assert bwd["bound_ms"] == pytest.approx(4 * R * C * V / 989e12 * 1e3)
+    assert chip_smoke.least_time(moved, 2 * R * C * V, torch.bfloat16) == {
+        "bound_ms": pytest.approx(2 * R * C * V / 989e12 * 1e3), "bound_by": "operations"}
+
+
+FWD_TC = "_Z15texthead_fwd_tcILi4ELi16EEvPK13__nv_bfloat16"
+DH_TC = "_Z18texthead_bwd_dh_tcILi4ELi2EEvPK13__nv_bfloat16"
+DW_TC = "_Z18texthead_bwd_dw_tcILi4ELb1EEv"
+
+
+def _fake_build(monkeypatch, tmp_path, sass):
+    """chip_smoke's phase 2 fed a build log in ptxas -v's format and a SASS
+    listing in cuobjdump -sass's."""
+    import subprocess
+
+    import chip_smoke
+
+    log = tmp_path / "lib.log"
+    log.write_text("\n".join([
+        f"ptxas info    : Compiling entry function '{FWD_TC}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {FWD_TC}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{DH_TC}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {DH_TC}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 246 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{DW_TC}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {DW_TC}",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 127 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z19texthead_fwd_kernelIfEv' for 'sm_90a'",
+        "ptxas info    : Used 120 registers, used 1 barriers"]))
+    monkeypatch.setattr(chip_smoke._build, "build_log_path", lambda: log)
+    monkeypatch.setattr(chip_smoke._build, "_nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(
+        cmd, 0, stdout=sass, stderr=""))
+    return chip_smoke
+
+
+SASS = "\n".join([
+    f"        Function : {FWD_TC}", "        /*0a00*/  HMMA.16816.F32.BF16 R24, R100, R4, R24 ;",
+    "        /*0a10*/  MUFU.EX2 R3, R3 ;",
+    "        /*0a20*/  HMMA.16816.F32.BF16 R28, R100, R6, R28 ;",
+    "        /*0a30*/  HMMA.16816.F32.BF16 R32, R100, R8, R32 ;",
+    f"        Function : {DH_TC}", "        /*0a70*/  HMMA.16816.F32.BF16 R24, R100, R4, R24 ;",
+    "        /*0a80*/  HMMA.16816.F32.BF16 R28, R100, R6, R28 ;",
+    f"        Function : {DW_TC}", "        /*0b00*/  HMMA.16816.F32.BF16 R8, R12, R4, R8 ;",
+    "        Function : _Z19texthead_fwd_kernelIfEv",
+    "        /*0010*/  FFMA R1, R2, R3, R1 ;"])
 
 
 def test_chip_smoke_reads_registers_spills_and_tensor_core_instructions(monkeypatch, tmp_path):
     """Phase 2's report, from a build log and a SASS listing in the formats
     of ptxas -v and cuobjdump -sass; a kernel without HMMA fails."""
-    import subprocess
-
-    import chip_smoke
-
-    dh = "_Z18texthead_bwd_dh_tcILi4ELi2EEvPK13__nv_bfloat16"
-    dw = "_Z18texthead_bwd_dw_tcILi4ELb1EEv"
-    log = tmp_path / "lib.log"
-    log.write_text("\n".join([
-        f"ptxas info    : Compiling entry function '{dh}' for 'sm_90a'",
-        f"ptxas info    : Function properties for {dh}",
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Used 246 registers, used 1 barriers",
-        f"ptxas info    : Compiling entry function '{dw}' for 'sm_90a'",
-        f"ptxas info    : Function properties for {dw}",
-        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
-        "ptxas info    : Used 127 registers, used 1 barriers",
-        "ptxas info    : Compiling entry function '_Z19texthead_fwd_kernelIfEv' for 'sm_90a'",
-        "ptxas info    : Used 120 registers, used 1 barriers"]))
-    sass = "\n".join([
-        f"        Function : {dh}", "        /*0a70*/  HMMA.16816.F32.BF16 R24, R100, R4, R24 ;",
-        "        /*0a80*/  HMMA.16816.F32.BF16 R28, R100, R6, R28 ;",
-        f"        Function : {dw}", "        /*0b00*/  HMMA.16816.F32.BF16 R8, R12, R4, R8 ;",
-        "        Function : _Z19texthead_fwd_kernelIfEv",
-        "        /*0010*/  FFMA R1, R2, R3, R1 ;"])
-    monkeypatch.setattr(chip_smoke._build, "build_log_path", lambda: log)
-    monkeypatch.setattr(chip_smoke._build, "_nvcc", lambda: "/cuda/bin/nvcc")
-    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(
-        cmd, 0, stdout=sass, stderr=""))
+    chip_smoke = _fake_build(monkeypatch, tmp_path, SASS)
     got = chip_smoke.kernel_resources("lib.so")
-    assert got["texthead_bwd_dh_tc"][dh] == {"registers": 246, "tensor_core_instructions": 2,
-                                             "stack_bytes": 0, "spill_store_bytes": 0,
-                                             "spill_load_bytes": 0}
-    assert got["texthead_bwd_dw_tc"][dw]["tensor_core_instructions"] == 1
-    assert got["texthead_bwd_dw_tc"][dw]["spill_store_bytes"] == 4
-    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(
-        cmd, 0, stdout=sass.replace("HMMA", "FFMA"), stderr=""))
+    assert set(got) == set(chip_smoke.TENSOR_CORE_KERNELS)
+    assert got["texthead_fwd_tc"] == {FWD_TC: {"registers": 168, "tensor_core_instructions": 3,
+                                               "stack_bytes": 0, "spill_store_bytes": 0,
+                                               "spill_load_bytes": 0}}
+    assert got["texthead_bwd_dh_tc"][DH_TC] == {"registers": 246, "tensor_core_instructions": 2,
+                                                "stack_bytes": 0, "spill_store_bytes": 0,
+                                                "spill_load_bytes": 0}
+    assert got["texthead_bwd_dw_tc"][DW_TC]["tensor_core_instructions"] == 1
+    assert got["texthead_bwd_dw_tc"][DW_TC]["spill_store_bytes"] == 4
+    _fake_build(monkeypatch, tmp_path, SASS.replace("HMMA", "FFMA"))
     with pytest.raises(chip_smoke.SmokeFailure, match="HMMA"):
+        chip_smoke.kernel_resources("lib.so")
+
+
+@pytest.mark.parametrize("mangled", [FWD_TC, DH_TC, DW_TC])
+def test_chip_smoke_fails_a_tensor_core_kernel_without_hmma(monkeypatch, tmp_path, mangled):
+    """One instantiation whose SASS has no HMMA (here each kernel's in turn,
+    the new forward's among them) fails phase 2, naming it."""
+    lines = SASS.splitlines()
+    at = lines.index(f"        Function : {mangled}")
+    end = next((i for i in range(at + 1, len(lines)) if "Function :" in lines[i]), len(lines))
+    sass = "\n".join(lines[:at + 1] + [x.replace("HMMA", "FFMA") for x in lines[at + 1:end]]
+                     + lines[end:])
+    chip_smoke = _fake_build(monkeypatch, tmp_path, sass)
+    with pytest.raises(chip_smoke.SmokeFailure, match=f"{mangled}: no HMMA"):
         chip_smoke.kernel_resources("lib.so")
