@@ -9,11 +9,12 @@ any failure of which exits non-zero:
 
   1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
   2. build: the CUDA kernels from ``mopoe_mimic_tpu_torch/csrc`` into
-     ``build/kernels/``, one nvcc per source, all at once; for K2's
-     tensor-core kernels (bfloat16 ``texthead_fwd``, ``texthead_bwd_dh``,
-     ``texthead_bwd_dw``) ptxas's registers and spills and the count of
-     HMMA/HGMMA instructions in their SASS (``cuobjdump -sass``), which must
-     not be 0 in any instantiation;
+     ``build/kernels/``, one nvcc per source, all at once; for the
+     tensor-core kernels (K2's bfloat16 ``texthead_fwd``, ``texthead_bwd_dh``,
+     ``texthead_bwd_dw``; K3's ``pointwise_fwd_tc`` and
+     ``pointwise_bwd_reduce_tc``) ptxas's registers and spills and the count
+     of HMMA/HGMMA instructions in their SASS (``cuobjdump -sass``), which
+     must not be 0 in any instantiation;
   3. K1 against its plain PyTorch version on the card, M ∈ {1, 2, 3},
      B ∈ {1, 5, 8, 32, 128, 256}, D = 64, with and without the prior
      expert: max |Δ| ≤ 1e-6·max(1, |ref|); then both timed at B = 128, 256,
@@ -36,8 +37,10 @@ any failure of which exits non-zero:
      runs it, fused (K2) and unfused (bf16 autocast conv_out →
      log_softmax → target gather, PyTorch calls), forward and forward +
      backward;
-     K3 (forward, pass A's partials and their finalize, pass B) against the
-     plain versions at the flagship's block shapes (B, C, Co, spatial) =
+     K3 (forward, pass A's partials and their finalize, pass B; in
+     bfloat16 the forward and pass A on tensor cores, ``pointwise_fwd_tc``
+     and ``pointwise_bwd_reduce_tc``, in float32 on the CUDA cores) against
+     the plain versions at the flagship's block shapes (B, C, Co, spatial) =
      (3, 64, 64, 5×5) with a conv bias, (256, 64, 64, 64×64) (the largest),
      (256, 320, 320, 1), (256, 320, 320, 4×4) and (256, 256, 256, 64)
      (1-D), W from a conv and from a transposed-conv weight: in float32
@@ -45,12 +48,14 @@ any failure of which exits non-zero:
      dx rtol 1e-5, dW, dcb, dγ, dβ rtol 1e-4, all atol 1e-5·max|ref|), and
      in bfloat16 (W, dy; x too where the flagship feeds it bf16) against the
      plain versions on the same inputs (y |Δ| ≤ 1e-2·max|ref|, gradients
-     2e-2·max|ref|); each kernel timed at the largest block and at
-     (256, 320, 320, 4×4) in bfloat16 against its plain version (pass A
-     as one function, its partials and their finalize together, against
-     pass A's bound), and the fused op against the unfused cuDNN
-     composition (the block's bn1 → relu → conv1 modules), forward and
-     forward + backward;
+     2e-2·max|ref|), each bfloat16 case run twice and bitwise equal; each
+     bfloat16 kernel timed at the largest block and at
+     (256, 320, 320, 4×4) against its plain version (pass A as one
+     function, its partials and their finalize together, against pass A's
+     bound; its chunks and scratch bytes beside the bytes of its inputs),
+     the float32 forward and pass A at the largest block, and the fused op
+     against the unfused cuDNN composition (the block's bn1 → relu → conv1
+     modules), forward and forward + backward;
   4. the serving slice at the flagship configuration's full width
      (configs/flagship.json: 128 px, word text len 128, vocab 3517,
      DIM 64, class_dim 64; random weights from seed 0, randomised BN
@@ -71,10 +76,14 @@ any failure of which exits non-zero:
      exactly once; the step's p50 and samples/s, then a profile of 3 steps
      (device idle share, device time by kernel and the port's kernels');
      then the same run with ``fused_pointwise=True`` as well, with each of
-     K3's four kernels launched exactly 32 times per step (one per residual
-     block), its p50, samples/s and profile beside the first; then both
-     steps timed in turns (A B B A, 5 steps a turn), and Σ of K3's bounds
-     over one step's 32 blocks, each from its launch's inputs;
+     K3's bfloat16 kernels (``pointwise_fwd_tc``, ``pointwise_bwd_reduce_tc``,
+     ``pointwise_bwd_finalize``, ``pointwise_bwd_dx``) launched exactly 32
+     times per step (one per residual block) and the float32 forward and
+     pass A never, its p50, samples/s and profile beside the first; then both
+     steps timed in turns (A B B A, 5 steps a turn), Σ of K3's bounds
+     over one step's 32 blocks, each from its launch's inputs, and K3's
+     device time at each of the step's block shapes (profiled, beside the
+     shape's bounds) summed over the step;
   8. one train step on the GPU (kernels) against one on the CPU (plain
      versions): flagship width, batch 8, float32, TF32 off, dropout 0,
      eps = 0, same weights: every loss term within rtol 1e-4; the gradients
@@ -83,7 +92,8 @@ any failure of which exits non-zero:
      the tensor plus 1e-3·max|g| of the model (float32's own floor on the
      tensors that are ill-conditioned at init: ``gpu_step_against_cpu``);
      then the same with ``fused_pointwise=True`` (K3's own accuracy is
-     judged by phase 3).
+     judged by phase 3), which launches K3's float32 kernels and none of
+     its bfloat16 ones.
 
 The last lines are a JSON object of the kernels (each with its launches on
 its path, error, time, plain time, the least time the card could take for
@@ -130,7 +140,9 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
     "texthead_bwd_dw": (K2_SOURCE, "mopoe_mimic_tpu/ops/pallas_texthead.py:88"),
     "texthead_bwd_dw_finalize": (K2_SOURCE, "mopoe_mimic_tpu/ops/pallas_texthead.py:88"),
     "pointwise_fwd": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:81"),
+    "pointwise_fwd_tc": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:81"),
     "pointwise_bwd_reduce": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:88"),
+    "pointwise_bwd_reduce_tc": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:88"),
     "pointwise_bwd_finalize": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:88"),
     "pointwise_bwd_dx": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:119"),
 }
@@ -139,10 +151,15 @@ K12 = tuple(name for name in KERNELS if name not in K3)  # the fused_text_head r
 K3_CALLS_PER_STEP = 32  # residual blocks of a joint_elbo flagship step
 K2_PER_STEP = {"texthead_fwd": 1, "texthead_bwd_dh": 1, "texthead_bwd_dw": 1,
                "texthead_bwd_dw_finalize": 1}  # launches per bf16 train step
-# bfloat16 only: float32 dW has no row splits to finalize
-BF16_ONLY = ("texthead_bwd_dw_finalize",)
-# K2's tensor-core kernels (bfloat16), by the name of their __global__ function
-TENSOR_CORE_KERNELS = ("texthead_fwd_tc", "texthead_bwd_dh_tc", "texthead_bwd_dw_tc")
+# bfloat16 only: float32 dW has no row splits to finalize, and K3's
+# tensor-core kernels take a bfloat16 W; float32 only: K3's CUDA-core
+# forward and pass A, which a bfloat16 call never reaches
+BF16_ONLY = ("texthead_bwd_dw_finalize", "pointwise_fwd_tc", "pointwise_bwd_reduce_tc")
+F32_ONLY = ("pointwise_fwd", "pointwise_bwd_reduce")
+K3_BF16 = tuple(name for name in K3 if name not in F32_ONLY)  # the bf16 step's K3 kernels
+# the tensor-core kernels (bfloat16), by the name of their __global__ function
+TENSOR_CORE_KERNELS = ("texthead_fwd_tc", "texthead_bwd_dh_tc", "texthead_bwd_dw_tc",
+                       "pointwise_fwd_tc", "pointwise_bwd_reduce_tc")
 NAMES = ("PA", "Lateral", "text")
 FLAGSHIP_HEAD = (256, 128, 64, 3517)  # K2 at the flagship: (B, L, C, V)
 TRAIN_WARMUP_STEPS = 300  # lr_warmup_steps of the training phase
@@ -205,7 +222,7 @@ def card() -> str:
 
 
 def kernel_resources(lib_path: str) -> dict:
-    """Phase 2's evidence for K2's tensor-core kernels: ptxas's registers,
+    """Phase 2's evidence for the tensor-core kernels: ptxas's registers,
     spill bytes and stack frame for each of their instantiations (the
     build's ``-Xptxas -v`` report) and the count of tensor-core
     instructions (HMMA or HGMMA) in each one's SASS (``cuobjdump -sass``
@@ -633,55 +650,131 @@ def k3_bounds(x3, w, dy) -> dict:
     written once (y in W's dtype, dx in x's, dW, dcb, dγ, dβ in float32);
     the products at the peak of W's dtype. The partials of pass A are
     scratch of this design, not work of the function: the finalize's share
-    of pass A's bound is the writing of pass A's outputs."""
+    of pass A's bound is the writing of pass A's outputs. The float32 and
+    tensor-core kernels of one function share its bound."""
     B, C, S = x3.shape
     Co = w.shape[1]
     R, stats, grads = B * S, 4 * C * 4, (C * Co + Co + 2 * C) * 4
     product = 2 * R * C * Co
+    fwd = least_time(nbytes(x3, w) + Co * 4 + stats + R * Co * w.element_size(), product, w.dtype)
+    pass_a = least_time(nbytes(x3, w, dy) + grads + stats, 2 * product, w.dtype)
     return {
-        "pointwise_fwd": least_time(nbytes(x3, w) + Co * 4 + stats + R * Co * w.element_size(),
-                                    product, w.dtype),
-        "pointwise_bwd_reduce": least_time(nbytes(x3, w, dy) + grads + stats, 2 * product,
-                                           w.dtype),
+        "pointwise_fwd": fwd, "pointwise_fwd_tc": fwd,
+        "pointwise_bwd_reduce": pass_a, "pointwise_bwd_reduce_tc": pass_a,
         "pointwise_bwd_finalize": least_time(grads, 0, torch.float32),
         "pointwise_bwd_dx": least_time(2 * nbytes(x3) + nbytes(w, dy) + 2 * C * 4 + stats,
                                        product, w.dtype),
     }
 
 
+def k3_names(w) -> dict:
+    """The kernels a call with this W launches: function → kernel name."""
+    tc = w.dtype == torch.bfloat16
+    return {"fwd": "pointwise_fwd_tc" if tc else "pointwise_fwd",
+            "pass_a": "pointwise_bwd_reduce_tc" if tc else "pointwise_bwd_reduce",
+            "finalize": "pointwise_bwd_finalize", "dx": "pointwise_bwd_dx"}
+
+
 def k3_step_bounds(run: dict) -> dict:
     """Σ over one train step of K3's bounds (``k3_bounds`` on the inputs
-    each launch is given), from one more step of ``run`` with the three
-    launchers wrapped; and the launches counted."""
-    totals, calls = dict.fromkeys(K3, 0.0), dict.fromkeys(K3, 0)
+    each launch is given), by the kernel each launch went to, from one more
+    step of ``run`` with the three launchers wrapped; the launches counted;
+    and the blocks' shapes: {(B, C, S, Co, x dtype): blocks of the step}."""
+    totals, calls, shapes = {}, {}, {}
     originals = {n: getattr(cuda_pointwise, n) for n in
                  ("pointwise_fwd_cuda", "pointwise_bwd_reduce_cuda", "pointwise_bwd_dx_cuda")}
 
-    def wrap(fn_name, kernels):
+    def wrap(fn_name, functions):
         def recorded(x3, gamma, beta, mean, inv, w, *rest):
             out = originals[fn_name](x3, gamma, beta, mean, inv, w, *rest)
             dy = rest[0] if fn_name != "pointwise_fwd_cuda" else out
-            bounds = k3_bounds(x3, w, dy)
-            for name in kernels:
-                totals[name] += bounds[name]["bound_ms"]
-                calls[name] += 1
+            bounds, names = k3_bounds(x3, w, dy), k3_names(w)
+            if fn_name == "pointwise_fwd_cuda":
+                key = (*x3.shape, w.shape[1], x3.dtype)
+                shapes[key] = shapes.get(key, 0) + 1
+            for function in functions:
+                name = names[function]
+                totals[name] = totals.get(name, 0.0) + bounds[name]["bound_ms"]
+                calls[name] = calls.get(name, 0) + 1
             return out
         return recorded
 
     try:
-        cuda_pointwise.pointwise_fwd_cuda = wrap("pointwise_fwd_cuda", ("pointwise_fwd",))
-        cuda_pointwise.pointwise_bwd_reduce_cuda = wrap(
-            "pointwise_bwd_reduce_cuda", ("pointwise_bwd_reduce", "pointwise_bwd_finalize"))
-        cuda_pointwise.pointwise_bwd_dx_cuda = wrap("pointwise_bwd_dx_cuda",
-                                                    ("pointwise_bwd_dx",))
+        cuda_pointwise.pointwise_fwd_cuda = wrap("pointwise_fwd_cuda", ("fwd",))
+        cuda_pointwise.pointwise_bwd_reduce_cuda = wrap("pointwise_bwd_reduce_cuda",
+                                                        ("pass_a", "finalize"))
+        cuda_pointwise.pointwise_bwd_dx_cuda = wrap("pointwise_bwd_dx_cuda", ("dx",))
         run["step"](run["state"], run["batch"])
         torch.cuda.synchronize()
     finally:
         for fn_name, fn in originals.items():
             setattr(cuda_pointwise, fn_name, fn)
-    check(all(n == K3_CALLS_PER_STEP for n in calls.values()),
-          f"K3 bound totals: launches {calls}, not {K3_CALLS_PER_STEP} each")
-    return totals
+    check(set(calls) == set(K3_BF16) and all(n == K3_CALLS_PER_STEP for n in calls.values()),
+          f"K3 bound totals: launches {calls}, not {K3_CALLS_PER_STEP} of each of {K3_BF16}")
+    return totals, shapes
+
+
+def device_us_by_kernel(fn, calls: int = 5) -> dict:
+    """Mean device µs per call of ``fn`` by kernel (the __global__
+    function's name), from ``torch.profiler`` over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = kernel_name(e.name)
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / calls
+    return out
+
+
+def k3_block_profile(shapes: dict, device, card_line: str) -> dict:
+    """Device time of K3's bfloat16 kernels at each block shape of the
+    fused step (``device_us_by_kernel``: the mean of 5 calls of each
+    function on seeded inputs of the shape, ``k3_case``), beside the
+    shape's bounds: {kernel: Σ over the step's blocks (µs)}, one line
+    printed per shape."""
+    step = {}
+    for (B, C, S, Co, x_dtype), blocks in sorted(shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1]
+                                                 * kv[0][2]):
+        x3, g, b, m, inv, w, cb, dy = k3_case(device, B, C, Co, (S,), False, False, x_dtype,
+                                              torch.bfloat16, seed=70)
+        _, _, dg, db = cuda_pointwise.pointwise_bwd_reduce_cuda(x3, g, b, m, inv, w, dy)
+        times = {
+            **device_us_by_kernel(
+                lambda: cuda_pointwise.pointwise_fwd_cuda(x3, g, b, m, inv, w, cb)),
+            **device_us_by_kernel(
+                lambda: cuda_pointwise.pointwise_bwd_reduce_cuda(x3, g, b, m, inv, w, dy)),
+            **device_us_by_kernel(
+                lambda: cuda_pointwise.pointwise_bwd_dx_cuda(x3, g, b, m, inv, w, dy, dg, db))}
+        kernels = {"pointwise_fwd_tc": "pointwise_fwd_tc",
+                   "pointwise_bwd_reduce_tc": "pointwise_bwd_reduce_tc",
+                   "pointwise_bwd_finalize": "pointwise_bwd_finalize_kernel",
+                   "pointwise_bwd_dx": "pointwise_bwd_dx_kernel"}
+        got = {k: times.get(v, 0.0) for k, v in kernels.items()}
+        check(all(got.values()), f"K3 profile {(B, C, S)}: a kernel left no device time: {times}")
+        for k, t in got.items():
+            step[k] = step.get(k, 0.0) + t * blocks
+        bounds = k3_bounds(x3, w, dy)
+        chunks = cuda_pointwise.reduce_tc_chunks(B * S, C, Co, x3.element_size())[1]
+        print(f"K3 block (B,C,S)=({B}, {C}, {S}) x {str(x_dtype)[6:]} ×{blocks} a step, device "
+              f"µs (profiled, mean of 5): pointwise_fwd_tc {got['pointwise_fwd_tc']:.1f} (bound "
+              f"{bounds['pointwise_fwd_tc']['bound_ms'] * 1e3:.1f}), pass A "
+              f"{got['pointwise_bwd_reduce_tc']:.1f} + finalize "
+              f"{got['pointwise_bwd_finalize']:.1f} (bound "
+              f"{bounds['pointwise_bwd_reduce_tc']['bound_ms'] * 1e3:.1f}; {chunks} chunks), "
+              f"pointwise_bwd_dx {got['pointwise_bwd_dx']:.1f} (bound "
+              f"{bounds['pointwise_bwd_dx']['bound_ms'] * 1e3:.1f})")
+        del x3, g, b, m, inv, w, cb, dy, dg, db
+    print("K3 per fused_pointwise step by block shape, Σ device µs: "
+          + ", ".join(f"{k} {t:.1f}" for k, t in step.items()) + f" [{card_line}]")
+    return step
 
 
 def k3_run(args):
@@ -700,10 +793,14 @@ def k3_plain(args, acc=None):
 
 
 def k3_against_plain(device: torch.device) -> dict:
-    """K3's four kernels against the plain versions at the flagship's block
-    shapes, both conv1 layouts, float32 (plain accumulated in float64) and
-    bfloat16; then timed at K3_TIMED in bfloat16 against the plain versions,
-    and the fused op against the unfused cuDNN composition."""
+    """K3's kernels against the plain versions at the flagship's block
+    shapes, both conv1 layouts: float32 (the CUDA-core kernels; plain
+    accumulated in float64) and bfloat16 (the tensor-core forward and pass
+    A; each case run twice, every output bitwise equal). Then timed: the
+    bfloat16 kernels at K3_TIMED against the plain versions, with pass A's
+    scratch bytes beside the bytes of its inputs, and the fused op against
+    the unfused cuDNN composition; the float32 forward and pass A at the
+    largest block."""
     def close(got, ref, rtol, atol_frac, what):
         ref = ref.double()
         err = (got.double() - ref).abs()
@@ -721,6 +818,7 @@ def k3_against_plain(device: torch.device) -> dict:
                 args = k3_case(device, B, C, Co, spatial, bias, transpose, x_dtype, w_dtype,
                                seed=40 + i)
                 got = k3_run(args)
+                kernels = k3_names(args[5])
                 if w_dtype == torch.float32:
                     ref = k3_plain(args, torch.float64)
                     errs = [close(a, r, rtol, 1e-5, f"{n} {(B, C, Co, spatial)} f32")
@@ -730,15 +828,19 @@ def k3_against_plain(device: torch.device) -> dict:
                     ref = (ref[0].to(w_dtype),) + ref[1:]  # y rounded as the kernel stores it
                     errs = [close(a, r, 0.0, frac, f"{n} {(B, C, Co, spatial)} bf16")
                             for a, r, n, frac in zip(got, ref, names, (1e-2,) + (2e-2,) * 5)]
+                    again = k3_run(args)
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"K3 {(B, C, Co, spatial)} bf16: two runs on the same inputs differ")
                 torch.cuda.synchronize()
-                worst["pointwise_fwd"] = max(worst["pointwise_fwd"], errs[0])
+                worst[kernels["fwd"]] = max(worst[kernels["fwd"]], errs[0])
                 worst["pointwise_bwd_dx"] = max(worst["pointwise_bwd_dx"], errs[1])
-                for name in ("pointwise_bwd_reduce", "pointwise_bwd_finalize"):
+                for name in (kernels["pass_a"], "pointwise_bwd_finalize"):
                     worst[name] = max(worst[name], *errs[2:])
                 print(f"K3 vs plain (B,C,Co)={(B, C, Co)} spatial {spatial} "
                       f"{'transpose' if transpose else 'conv'} x {str(x_dtype)[6:]} "
                       f"W {str(w_dtype)[6:]}: max |Δ| "
-                      + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)))
+                      + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+                      + ("; two runs bitwise equal" if w_dtype == torch.bfloat16 else ""))
         del args, got, ref
 
     out = {}
@@ -746,53 +848,80 @@ def k3_against_plain(device: torch.device) -> dict:
         B, C, Co, spatial, bias, x_bf16 = K3_CASES[i]
         args = k3_case(device, B, C, Co, spatial, bias, False,
                        torch.bfloat16 if x_bf16 else torch.float32, torch.bfloat16, seed=50 + i)
-        x3, g, b, m, inv, w, cb, dy = args
-        parts = cuda_pointwise.pointwise_bwd_partials_cuda(x3, g, b, m, inv, w, dy)
-        _, _, dg, db = cuda_pointwise.pointwise_bwd_finalize_cuda(*parts)
-        # pass A is one function (dW, dcb, dγ, dβ from x, W, dy), timed as
-        # such: its partials kernel and their finalize together
-        timed = {
-            "pointwise_fwd": (
-                lambda: cuda_pointwise.pointwise_fwd_cuda(x3, g, b, m, inv, w, cb),
-                lambda: PW.pointwise_fwd_plain(x3, g, b, m, inv, w, cb).to(w.dtype)),
-            "pointwise_bwd_reduce": (
-                lambda: cuda_pointwise.pointwise_bwd_reduce_cuda(x3, g, b, m, inv, w, dy),
-                lambda: PW.pointwise_bwd_reduce_plain(x3, g, b, m, inv, w, dy)),
-            "pointwise_bwd_finalize": (
-                lambda: cuda_pointwise.pointwise_bwd_finalize_cuda(*parts),
-                lambda: (parts[0].sum(0), parts[1].sum(0), parts[2].sum((0, 1)),
-                         parts[3].sum((0, 1)))),
-            "pointwise_bwd_dx": (
-                lambda: cuda_pointwise.pointwise_bwd_dx_cuda(x3, g, b, m, inv, w, dy, dg, db),
-                lambda: PW.pointwise_bwd_dx_plain(x3, g, b, m, inv, w, dy, dg, db).to(x3.dtype)),
-        }
-        bounds = k3_bounds(x3, w, dy)
-        shape = f"(B,C,Co)={(B, C, Co)} spatial {spatial} x {str(x3.dtype)[6:]} W bf16"
-        partials_ms = cuda_ms(
-            lambda: cuda_pointwise.pointwise_bwd_partials_cuda(x3, g, b, m, inv, w, dy),
-            calls=20, warmup=3)
-        for name, (kernel_fn, plain_fn) in timed.items():
-            k_ms = cuda_ms(kernel_fn, calls=20, warmup=3)
-            p_ms = cuda_ms(plain_fn, calls=20, warmup=3)
-            if i == K3_TIMED[0]:
-                out[name] = {"max_abs_err": worst[name], "ms": k_ms, "plain_ms": p_ms,
-                             **bounds[name], "library_ms": None}
-            what = ("pass A (partials + finalize)" if name == "pointwise_bwd_reduce" else name)
-            print(f"K3 {what} time {shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-                  f"{bounds[name]['bound_ms']:.4g} ms ({bounds[name]['bound_by']}) "
-                  "(median of 20 calls, CUDA events)")
-        print(f"K3 pointwise_bwd_reduce's partials kernel alone {shape}: {partials_ms:.3f} ms "
-              "(median of 20 calls, CUDA events)")
-        if i == K3_TIMED[0]:
-            out["pointwise_bwd_reduce"]["partials_ms"] = partials_ms
+        shape = (f"(B,C,Co)={(B, C, Co)} spatial {spatial} x {str(args[0].dtype)[6:]} W bf16")
+        timed = k3_times(args, shape, first=i == K3_TIMED[0])
+        x3 = args[0]
+        R = x3.shape[0] * x3.shape[2]
+        rows, chunks = cuda_pointwise.reduce_tc_chunks(R, C, Co, x3.element_size())
+        scratch = cuda_pointwise.pass_a_scratch_bytes(R, C, Co, chunks)
+        inputs = cuda_pointwise.pass_a_input_bytes(R, C, Co, x3.element_size())
+        print(f"K3 pointwise_bwd_reduce_tc {shape}: {chunks} chunks of {rows} rows; scratch "
+              f"{scratch} B written and read against {inputs} B of inputs "
+              f"({scratch / inputs:.3f})")
         block = fused_against_cudnn(args, spatial, bias)
         print(f"K3 block bn1→relu→conv1 {shape}, bf16 autocast: fused (batch stats + kernels) "
               f"fwd {block['fused_fwd']:.3f} ms, fwd+bwd {block['fused_fwd_bwd']:.3f} ms; "
               f"unfused cuDNN fwd {block['unfused_fwd']:.3f} ms, fwd+bwd "
               f"{block['unfused_fwd_bwd']:.3f} ms (median of 20 calls, CUDA events)")
         if i == K3_TIMED[0]:
-            out["pointwise_fwd"]["block_ms"] = block
-        del args, parts, timed
+            out.update(timed)
+            out["pointwise_fwd_tc"]["block_ms"] = block
+            out["pointwise_bwd_reduce_tc"].update(chunks=chunks, scratch_bytes=scratch,
+                                                  input_bytes=inputs)
+        del args
+    B, C, Co, spatial, bias, _ = K3_CASES[K3_TIMED[0]]
+    args = k3_case(device, B, C, Co, spatial, bias, False, torch.float32, torch.float32, seed=60)
+    timed = k3_times(args, f"(B,C,Co)={(B, C, Co)} spatial {spatial} x float32 W float32",
+                     first=True)
+    out.update({name: timed[name] for name in F32_ONLY})
+    for name, entry in out.items():
+        entry.update(max_abs_err=worst[name], library_ms=None)
+    return out
+
+
+def k3_times(args, shape: str, first: bool) -> dict:
+    """K3's kernels on ``args`` timed against their plain versions (CUDA
+    events, median of 20 calls), pass A as one function (its partials
+    kernel and their finalize together; the partials also alone), each
+    beside its bound: {kernel: entry}."""
+    x3, g, b, m, inv, w, cb, dy = args
+    kernels = k3_names(w)
+    parts = cuda_pointwise.pointwise_bwd_partials_cuda(x3, g, b, m, inv, w, dy)
+    _, _, dg, db = cuda_pointwise.pointwise_bwd_finalize_cuda(*parts)
+    timed = {
+        kernels["fwd"]: (
+            lambda: cuda_pointwise.pointwise_fwd_cuda(x3, g, b, m, inv, w, cb),
+            lambda: PW.pointwise_fwd_plain(x3, g, b, m, inv, w, cb).to(w.dtype)),
+        kernels["pass_a"]: (
+            lambda: cuda_pointwise.pointwise_bwd_reduce_cuda(x3, g, b, m, inv, w, dy),
+            lambda: PW.pointwise_bwd_reduce_plain(x3, g, b, m, inv, w, dy)),
+        "pointwise_bwd_finalize": (
+            lambda: cuda_pointwise.pointwise_bwd_finalize_cuda(*parts),
+            lambda: (parts[0].sum(0), parts[1].sum(0), parts[2].sum((0, 1)),
+                     parts[3].sum((0, 1)))),
+        "pointwise_bwd_dx": (
+            lambda: cuda_pointwise.pointwise_bwd_dx_cuda(x3, g, b, m, inv, w, dy, dg, db),
+            lambda: PW.pointwise_bwd_dx_plain(x3, g, b, m, inv, w, dy, dg, db).to(x3.dtype)),
+    }
+    if w.dtype == torch.float32:  # the float32 run times only its own kernels
+        timed = {kernels["fwd"]: timed[kernels["fwd"]], kernels["pass_a"]: timed[kernels["pass_a"]]}
+    bounds = k3_bounds(x3, w, dy)
+    partials_ms = cuda_ms(
+        lambda: cuda_pointwise.pointwise_bwd_partials_cuda(x3, g, b, m, inv, w, dy),
+        calls=20, warmup=3)
+    out = {}
+    for name, (kernel_fn, plain_fn) in timed.items():
+        k_ms = cuda_ms(kernel_fn, calls=20, warmup=3)
+        p_ms = cuda_ms(plain_fn, calls=20, warmup=3)
+        out[name] = {"ms": k_ms, "plain_ms": p_ms, **bounds[name]}
+        what = f"{name} (pass A: partials + finalize)" if name == kernels["pass_a"] else name
+        print(f"K3 {what} time {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+              f"{bounds[name]['bound_ms']:.4g} ms ({bounds[name]['bound_by']}) "
+              "(median of 20 calls, CUDA events)")
+    print(f"K3 {kernels['pass_a']}'s partials kernel alone {shape}: {partials_ms:.4f} ms "
+          "(median of 20 calls, CUDA events)")
+    if first:
+        out[kernels["pass_a"]]["partials_ms"] = partials_ms
     return out
 
 
@@ -1044,6 +1173,13 @@ def steps_in_turns(runs: dict, steps: int = 5) -> dict:
     return {path: statistics.median(t) for path, t in times.items()}
 
 
+def kernel_name(event_name: str) -> str:
+    """The __global__ function's name in a profiler event's name (no
+    namespace, template arguments or parameters)."""
+    fn = re.match(r"(?:void )?([A-Za-z_]\w*)", event_name.replace("(anonymous namespace)::", ""))
+    return fn.group(1) if fn else event_name
+
+
 def device_idle_share(fn, calls: int = 3) -> str:
     """Device busy time (union of the kernel and copy intervals that
     ``torch.profiler`` records on the card) against the wall time of
@@ -1080,9 +1216,9 @@ def device_idle_share(fn, calls: int = 3) -> str:
     # the port's own kernels, by the name of their __global__ function
     ours = {}
     for name, t in by_name.items():
-        fn = re.match(r"(?:void )?([A-Za-z_]\w*)", name.replace("(anonymous namespace)::", ""))
-        if fn and fn.group(1).startswith(("texthead_", "poe_subsets", "pointwise_")):
-            ours[fn.group(1)] = ours.get(fn.group(1), 0.0) + t
+        fn = kernel_name(name)
+        if fn.startswith(("texthead_", "poe_subsets", "pointwise_")):
+            ours[fn] = ours.get(fn, 0.0) + t
     return (f"device idle share over {calls} calls (profiled): wall {wall_us / calls / 1e3:.3f} ms"
             f"/call, device busy {busy / calls / 1e3:.3f} ms/call, idle "
             f"{100.0 * (1.0 - busy / wall_us):.1f}%, {len(spans) // calls} device ops/call; "
@@ -1133,6 +1269,8 @@ def gpu_step_against_cpu(cfg, device, kernels=K12, n: int = 8) -> dict:
     got, g_gpu = one_step_grads(cfg, sd, device, batch)
     check(all(launch_counts()[k] > before[k] for k in kernels if k not in BF16_ONLY),
           "GPU train step did not launch every kernel")
+    check(all(launch_counts()[k] == before[k] for k in BF16_ONLY if k in K3),
+          "a float32 train step launched a bfloat16 kernel")
     ref, g_cpu = one_step_grads(cfg, sd, "cpu", batch)
     _, g64 = one_step_grads(cfg64, sd, "cpu", batch)
     for name in ref:
@@ -1167,11 +1305,14 @@ def gpu_step_against_cpu(cfg, device, kernels=K12, n: int = 8) -> dict:
 
 def kernel_entries(results: dict, runs: dict, serve_launches: int) -> list:
     """The kernels line: each kernel with its launches on its own path (K1,
-    K2: the fused_text_head run; K3: the fused_pointwise run), those on
-    every path, and its measurements."""
+    K2: the fused_text_head run; K3: the fused_pointwise run in bfloat16,
+    and for K3's float32 forward and pass A, which a bfloat16 step never
+    launches, phase 8's float32 fused_pointwise step), those on every path,
+    and its measurements."""
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        path = "train" if name in K12 else "train_fused_pointwise"
+        path = ("train" if name in K12 else
+                "train_fused_pointwise_f32" if name in F32_ONLY else "train_fused_pointwise")
         by_path = {p: r["launches"][name] for p, r in runs.items() if r["launches"][name]}
         if name == "poe_subsets_f32":
             by_path = {"serve": serve_launches, **by_path}
@@ -1206,8 +1347,8 @@ def main() -> int:
     results = {"poe_subsets_f32": k1_against_plain(device),
                "poe_subsets_bwd_f32": k1_bwd_against_plain(device),
                **k2_against_plain(device, card_line), **k3_against_plain(device)}
-    for name in TENSOR_CORE_KERNELS:
-        results[name.removesuffix("_tc")]["sass"] = sass[name]
+    for name in TENSOR_CORE_KERNELS:  # K2's entries are named by the function, K3's by kernel
+        results[name if name in results else name.removesuffix("_tc")]["sass"] = sass[name]
 
     flagship = MopoeConfig.from_json(str(FLAGSHIP))
     sd = random_state_dict(flagship)
@@ -1237,8 +1378,9 @@ def main() -> int:
     runs = {}
     for path, cfg, launched, per_step in (
             ("train", train_cfg, K12, K2_PER_STEP),
-            ("train_fused_pointwise", train_cfg.replace(fused_pointwise=True), tuple(KERNELS),
-             {**K2_PER_STEP, **dict.fromkeys(K3, K3_CALLS_PER_STEP)})):
+            ("train_fused_pointwise", train_cfg.replace(fused_pointwise=True), K12 + K3_BF16,
+             {**K2_PER_STEP, **dict.fromkeys(K3_BF16, K3_CALLS_PER_STEP),
+              **dict.fromkeys(F32_ONLY, 0)})):
         knobs = "fused_text_head" + (", fused_pointwise" if cfg.fused_pointwise else "")
         run = runs[path] = drive_training(cfg, device, launched, per_step)
         terms = {k: round(float(v), 4) for k, v in loss_terms(run["metrics"]).items()}
@@ -1252,14 +1394,17 @@ def main() -> int:
     turns = steps_in_turns(runs)
     print("p50 train step in turns (A B B A, 5 steps a turn, after the runs above): "
           + ", ".join(f"{p} {t:.3f} ms" for p, t in turns.items()) + f" [{card_line}]")
-    k3_totals = k3_step_bounds(runs["train_fused_pointwise"])
+    k3_totals, k3_shapes = k3_step_bounds(runs["train_fused_pointwise"])
     print(f"K3 per fused_pointwise step, Σ over its {K3_CALLS_PER_STEP} blocks of the bound on "
           "each launch's inputs: " + ", ".join(f"{n} {t:.4f} ms" for n, t in k3_totals.items()))
+    k3_block_profile(k3_shapes, device, card_line)
     for run in runs.values():
         del run["state"], run["batch"], run["step"]
     gpu_step_against_cpu(flagship.replace(fused_text_head=True), device)
+    reset_launch_counts()
     gpu_step_against_cpu(flagship.replace(fused_text_head=True, fused_pointwise=True), device,
                          tuple(KERNELS))
+    runs["train_fused_pointwise_f32"] = {"launches": launch_counts()}
 
     print(json.dumps({"kernels": kernel_entries(results, runs, serve_launches)}))
     print(card_line)

@@ -62,6 +62,12 @@ class MMVae(nn.Module):
             raise NotImplementedError("only word text encoding is ported")
         if cfg.feature_extractor_img != "resnet":
             raise NotImplementedError("only the resnet image feature extractor is ported")
+        if cfg.bn_compute_dtype != "float32":
+            raise NotImplementedError(
+                f"bn_compute_dtype={cfg.bn_compute_dtype!r} is not ported: every BatchNorm of "
+                "the port runs in float32")
+        if cfg.remat != "none":
+            raise NotImplementedError(f"remat={cfg.remat!r} is not ported")
         self.cfg = cfg
         for m in cfg.modality_names:
             suffix = MODULE_SUFFIX[m]

@@ -12,6 +12,7 @@ raises with nvcc's output; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -19,6 +20,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -137,9 +141,14 @@ def load_library() -> ctypes.CDLL:
         "texthead_bwd_dw_finalize": [ptr] * 4 + [i32] * 3 + [ptr],
         # x, gamma, beta, mean, inv, W, cb, y, B, C, Co, S, x_dtype, w_dtype, stream
         "pointwise_fwd": [ptr] * 8 + [i32] * 6 + [ptr],
+        # x, gamma, beta, mean, inv, W, cb, y, B, C, Co, S, x_dtype, stream
+        "pointwise_fwd_tc": [ptr] * 8 + [i32] * 5 + [ptr],
         # x, gamma, beta, mean, inv, W, dy, part_dw, part_dcb, part_dg, part_db,
         # B, C, Co, S, chunk_rows, x_dtype, w_dtype, stream
         "pointwise_bwd_reduce": [ptr] * 11 + [i32] * 7 + [ptr],
+        # x, gamma, beta, mean, inv, W, dy, part_dw, part_dcb, part_dg, part_db,
+        # B, C, Co, S, chunk_rows, x_dtype, stream
+        "pointwise_bwd_reduce_tc": [ptr] * 11 + [i32] * 6 + [ptr],
         # part_dw, part_dcb, part_dg, part_db, dW, dcb, dg, db, C, Co, chunks, o_tiles, stream
         "pointwise_bwd_finalize": [ptr] * 8 + [i32] * 4 + [ptr],
         # x, gamma, beta, mean, inv, W, dy, dg, db, dx, B, C, Co, S, x_dtype, w_dtype, stream
@@ -150,3 +159,21 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def on_device(device):
+    """``torch.cuda.device(device)`` where it is not the current device
+    already; else nothing to enter (the context manager costs microseconds a
+    call)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def launch(counts: Dict[str, int], name: str, *args) -> None:
+    """Call the entry point ``name`` on the current stream, raise with its
+    cudaError if it returns one, else add one to ``counts[name]``."""
+    err = getattr(load_library(), name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    counts[name] += 1

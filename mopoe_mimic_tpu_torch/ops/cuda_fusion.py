@@ -18,7 +18,6 @@ tensors' own, and a forward that needs no gradient skips
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Tuple
 
@@ -74,31 +73,15 @@ def _check(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"poe_subsets_cuda: {name} must be [M, B, D], got {tuple(x.shape)}")
 
 
-def _launch(name: str, *args) -> None:
-    lib = _build.load_library()
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
-
-
-def _on(device: torch.device):
-    """``torch.cuda.device(device)`` where it is not the current device
-    already; else nothing to enter."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def _poe_subsets_fwd(mus, logvars, masks: _build.SubsetMasks,
                      prior_t: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """``poe_subsets_f32``: mu, logvar [S, B, D] from mus, logvars [M, B, D]."""
     n_experts, batch, dim = mus.shape
     mu_out = mus.new_empty((masks.n_subsets, batch, dim))
     lv_out = torch.empty_like(mu_out)
-    with _on(mus.device):
-        _launch("poe_subsets_f32", mus.data_ptr(), logvars.data_ptr(), mu_out.data_ptr(),
-                lv_out.data_ptr(), n_experts, batch, dim, masks, prior_t)
+    with _build.on_device(mus.device):
+        _build.launch(LAUNCHES, "poe_subsets_f32", mus.data_ptr(), logvars.data_ptr(),
+                      mu_out.data_ptr(), lv_out.data_ptr(), n_experts, batch, dim, masks, prior_t)
     return mu_out, lv_out
 
 
@@ -129,10 +112,10 @@ def poe_subsets_bwd_cuda(mus, logvars, dmu_s, dlv_s, masks: _build.SubsetMasks,
     n_experts, batch, dim = mus.shape
     dmu = torch.empty_like(mus)
     dlv = torch.empty_like(mus)
-    with _on(mus.device):
-        _launch("poe_subsets_bwd_f32", mus.data_ptr(), logvars.data_ptr(), dmu_s.data_ptr(),
-                dlv_s.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n_experts, batch, dim,
-                masks, prior_t)
+    with _build.on_device(mus.device):
+        _build.launch(LAUNCHES, "poe_subsets_bwd_f32", mus.data_ptr(), logvars.data_ptr(),
+                      dmu_s.data_ptr(), dlv_s.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n_experts,
+                      batch, dim, masks, prior_t)
     return dmu, dlv
 
 

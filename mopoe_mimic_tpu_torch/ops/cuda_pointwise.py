@@ -2,14 +2,20 @@
 
 Replaces the Pallas TPU kernels ``_fwd_kernel``, ``_bwd_reduce_kernel`` and
 ``_bwd_dx_kernel`` of ``mopoe_mimic_tpu/ops/pallas_pointwise.py`` (:81, :88,
-:119). The kernels are ``csrc/pointwise.cu``: ``pointwise_fwd`` (y),
-``pointwise_bwd_reduce`` (pass A's per-chunk partial sums of dW, dcb, dγ,
-dβ), ``pointwise_bwd_finalize`` (those partials summed in a fixed order:
-no atomics, so two equal steps give equal gradients) and
-``pointwise_bwd_dx`` (pass B), joined by a ``torch.autograd.Function`` that
-saves x, not the normalised activations. They index the port's [B, C, S]
-layout directly. Their plain PyTorch versions are
-``ops/pointwise.pointwise_{fwd,bwd_reduce,bwd_dx}_plain``.
+:119). The kernels are ``csrc/pointwise.cu``, joined by a
+``torch.autograd.Function`` that saves x, not the normalised activations:
+the forward (y), pass A (dW, dcb, dγ, dβ: per-chunk partial sums, then
+``pointwise_bwd_finalize``, which sums them in a fixed order: no atomics,
+so two equal steps give equal gradients) and pass B (``pointwise_bwd_dx``).
+They index the port's [B, C, S] layout directly. Their plain PyTorch
+versions are ``ops/pointwise.pointwise_{fwd,bwd_reduce,bwd_dx}_plain``.
+
+The wrappers dispatch on W's dtype, as ``ops/cuda_texthead.py`` does for
+K2: a bfloat16 W (bf16 autocast) runs the forward and pass A on tensor
+cores (``pointwise_fwd_tc``, ``pointwise_bwd_reduce_tc``), a float32 W on
+the CUDA cores (``pointwise_fwd``, ``pointwise_bwd_reduce``). A bfloat16
+call never reaches the float32 kernels, and a kernel that fails to launch
+raises. Pass B runs on the CUDA cores in both.
 """
 
 from __future__ import annotations
@@ -23,30 +29,55 @@ from mopoe_mimic_tpu_torch.ops import _build
 
 # Launches of each kernel since the last reset; read by chip_smoke.py to
 # show that the main path went through the kernels.
-LAUNCHES = {"pointwise_fwd": 0, "pointwise_bwd_reduce": 0, "pointwise_bwd_finalize": 0,
-            "pointwise_bwd_dx": 0}
+LAUNCHES = {"pointwise_fwd": 0, "pointwise_fwd_tc": 0, "pointwise_bwd_reduce": 0,
+            "pointwise_bwd_reduce_tc": 0, "pointwise_bwd_finalize": 0, "pointwise_bwd_dx": 0}
 
 MAX_CHANNELS = 2048
+MAX_TC_CHANNELS = 1024  # pointwise_fwd_tc keeps all C rows of W's 64-output slice in shared memory
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64  # channels, outputs and rows of pass A's tiles (csrc/pointwise.cu AT)
-TARGET_BLOCKS = 4 * 132  # pass A: about four blocks per SM of an H100
-
-
-def _launch(name: str, *args) -> None:
-    lib = _build.load_library()
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+TILE = 64  # channels, outputs and rows of pass A's tiles (csrc/pointwise.cu AT, TC_T)
+TARGET_BLOCKS = 4 * 132  # float32 pass A: about four blocks per SM of an H100
+WAVE_BLOCKS = 2 * 132  # bfloat16 pass A: the two blocks each SM of an H100 holds
 
 
 def reduce_chunks(R: int, C: int, Co: int) -> Tuple[int, int]:
-    """(rows per chunk, chunks) of pass A: enough (chunk, channel tile,
-    output tile) blocks to fill the card, each chunk a multiple of TILE
-    rows. A function of the shape alone, so the order of the sums is too."""
+    """(rows per chunk, chunks) of float32 pass A: enough (chunk, channel
+    tile, output tile) blocks to fill the card, each chunk a multiple of
+    TILE rows. A function of the shape alone, so the order of the sums is
+    too."""
     tiles = math.ceil(C / TILE) * math.ceil(Co / TILE)
     n = max(1, min(math.ceil(R / TILE), math.ceil(TARGET_BLOCKS / tiles)))
     rows = math.ceil(math.ceil(R / n) / TILE) * TILE
+    return rows, math.ceil(R / rows)
+
+
+def pass_a_input_bytes(R: int, C: int, Co: int, x_bytes: int) -> int:
+    """What bfloat16 pass A must read: x, dy (bf16) and W (bf16)."""
+    return R * (C * x_bytes + 2 * Co) + 2 * C * Co
+
+
+def pass_a_scratch_bytes(R: int, C: int, Co: int, chunks: int) -> int:
+    """Pass A's partials, written once and read once by the finalize: dW and
+    dcb per chunk where there are several (one chunk writes them as they
+    are), dγ and dβ per chunk and output tile."""
+    per_chunk = (C * Co + Co) * 4 if chunks > 1 else 0
+    return 2 * chunks * (per_chunk + 2 * math.ceil(Co / TILE) * C * 4)
+
+
+def reduce_tc_chunks(R: int, C: int, Co: int, x_bytes: int) -> Tuple[int, int]:
+    """(rows per chunk, chunks) of bfloat16 pass A: one wave of (chunk,
+    channel tile, output tile) blocks, WAVE_BLOCKS, but no more chunks than
+    keep the partials' traffic (``pass_a_scratch_bytes``) below the bytes
+    of the inputs; one chunk where even two would not. Chunks are a multiple
+    of TILE rows; a function of the shape alone, so the order of the sums
+    is too."""
+    tiles = math.ceil(C / TILE) * math.ceil(Co / TILE)
+    row_tiles = math.ceil(R / TILE)
+    n = max(1, min(row_tiles, WAVE_BLOCKS // tiles))
+    inputs = pass_a_input_bytes(R, C, Co, x_bytes)
+    while n > 1 and pass_a_scratch_bytes(R, C, Co, n) >= inputs:
+        n -= 1
+    rows = math.ceil(row_tiles / n) * TILE
     return rows, math.ceil(R / rows)
 
 
@@ -73,9 +104,10 @@ def _check(x3, gamma, beta, mean, inv, w, cb) -> None:
         raise ValueError(f"pointwise_cuda: shapes x {tuple(x3.shape)}, weight {tuple(w.shape)}, "
                          f"bias {tuple(cb.shape)}, gamma/beta/mean/inv {tuple(gamma.shape)} "
                          "do not agree")
-    if not (1 <= C <= MAX_CHANNELS and 1 <= Co <= MAX_CHANNELS):
-        raise ValueError(f"pointwise_cuda: {C} → {Co} channels; the kernels take "
-                         f"1..{MAX_CHANNELS}")
+    most = MAX_TC_CHANNELS if w.dtype == torch.bfloat16 else MAX_CHANNELS
+    if not (1 <= C <= most and 1 <= Co <= MAX_CHANNELS):
+        raise ValueError(f"pointwise_cuda: {C} → {Co} channels; the kernels take 1..{most} → "
+                         f"1..{MAX_CHANNELS} with a {w.dtype} weight")
     if not 1 <= B * S < 2**31:
         raise ValueError(f"pointwise_cuda: {B}·{S} rows; the kernels take 1 to 2^31 - 1")
 
@@ -86,49 +118,67 @@ def _args(x3, gamma, beta, mean, inv, w):
 
 
 def pointwise_fwd_cuda(x3, gamma, beta, mean, inv, w, cb) -> torch.Tensor:
-    """``pointwise_fwd``: y [B, Co, S] in w's dtype."""
+    """y [B, Co, S] in w's dtype: ``pointwise_fwd_tc`` for a bfloat16 w,
+    ``pointwise_fwd`` for a float32 one."""
     (B, C, S), Co = x3.shape, w.shape[1]
     y = torch.empty((B, Co, S), dtype=w.dtype, device=x3.device)
-    with torch.cuda.device(x3.device):
-        _launch("pointwise_fwd", *_args(x3, gamma, beta, mean, inv, w), cb.data_ptr(),
-                y.data_ptr(), B, C, Co, S, _DTYPE_CODE[x3.dtype], _DTYPE_CODE[w.dtype])
+    args = (*_args(x3, gamma, beta, mean, inv, w), cb.data_ptr(), y.data_ptr(), B, C, Co, S,
+            _DTYPE_CODE[x3.dtype])
+    with _build.on_device(x3.device):
+        if w.dtype == torch.bfloat16:
+            _build.launch(LAUNCHES, "pointwise_fwd_tc", *args)
+        else:
+            _build.launch(LAUNCHES, "pointwise_fwd", *args, _DTYPE_CODE[w.dtype])
     return y
 
 
 def pointwise_bwd_partials_cuda(x3, gamma, beta, mean, inv, w, dy) -> Tuple[torch.Tensor, ...]:
-    """``pointwise_bwd_reduce``: pass A's partial sums per row chunk (and,
-    for dγ and dβ, per output tile): part_dw [chunks, C, Co], part_dcb
-    [chunks, Co], part_dg and part_db [chunks, Co tiles, C], float32; dy
-    [B, Co, S] in w's dtype."""
+    """Pass A's partial sums per row chunk (and, for dγ and dβ, per output
+    tile): part_dw [chunks, C, Co], part_dcb [chunks, Co], part_dg and
+    part_db [chunks, Co tiles, C], float32; dy [B, Co, S] in w's dtype.
+    ``pointwise_bwd_reduce_tc`` (chunks from ``reduce_tc_chunks``) for a
+    bfloat16 w, ``pointwise_bwd_reduce`` (``reduce_chunks``) for a float32
+    one. With one chunk, part_dw[0] and part_dcb[0] are dW and dcb."""
     (B, C, S), Co = x3.shape, w.shape[1]
-    rows, chunks = reduce_chunks(B * S, C, Co)
+    tc = w.dtype == torch.bfloat16
+    rows, chunks = (reduce_tc_chunks(B * S, C, Co, x3.element_size()) if tc
+                    else reduce_chunks(B * S, C, Co))
     o_tiles = math.ceil(Co / TILE)
     f32 = dict(dtype=torch.float32, device=x3.device)
     parts = (torch.empty((chunks, C, Co), **f32), torch.empty((chunks, Co), **f32),
              torch.empty((chunks, o_tiles, C), **f32), torch.empty((chunks, o_tiles, C), **f32))
-    with torch.cuda.device(x3.device):
-        _launch("pointwise_bwd_reduce", *_args(x3, gamma, beta, mean, inv, w), dy.data_ptr(),
-                *(t.data_ptr() for t in parts), B, C, Co, S, rows,
-                _DTYPE_CODE[x3.dtype], _DTYPE_CODE[w.dtype])
+    args = (*_args(x3, gamma, beta, mean, inv, w), dy.data_ptr(), *(t.data_ptr() for t in parts),
+            B, C, Co, S, rows, _DTYPE_CODE[x3.dtype])
+    with _build.on_device(x3.device):
+        if tc:
+            _build.launch(LAUNCHES, "pointwise_bwd_reduce_tc", *args)
+        else:
+            _build.launch(LAUNCHES, "pointwise_bwd_reduce", *args, _DTYPE_CODE[w.dtype])
     return parts
 
 
 def pointwise_bwd_finalize_cuda(part_dw, part_dcb, part_dg, part_db) -> Tuple[torch.Tensor, ...]:
     """``pointwise_bwd_finalize``: dW [C, Co], dcb [Co], dγ [C], dβ [C],
-    float32, each the sum of its partials in a fixed order."""
+    float32, each the sum of its partials in a fixed order. With one chunk,
+    dW and dcb are the partials themselves and only dγ and dβ are summed
+    (over the output tiles)."""
     chunks, C, Co = part_dw.shape
-    outs = (torch.empty_like(part_dw[0]), torch.empty_like(part_dcb[0]),
-            torch.empty_like(part_dg[0, 0]), torch.empty_like(part_db[0, 0]))
-    with torch.cuda.device(part_dw.device):
-        _launch("pointwise_bwd_finalize", part_dw.data_ptr(), part_dcb.data_ptr(),
-                part_dg.data_ptr(), part_db.data_ptr(), *(t.data_ptr() for t in outs), C, Co,
-                chunks, part_dg.shape[1])
-    return outs
+    if chunks == 1:
+        dw, dcb = part_dw[0], part_dcb[0]
+    else:
+        dw, dcb = torch.empty_like(part_dw[0]), torch.empty_like(part_dcb[0])
+    dg, db = torch.empty_like(part_dg[0, 0]), torch.empty_like(part_db[0, 0])
+    with _build.on_device(part_dw.device):
+        _build.launch(LAUNCHES, "pointwise_bwd_finalize", part_dw.data_ptr(), part_dcb.data_ptr(),
+                      part_dg.data_ptr(), part_db.data_ptr(),
+                      *(t.data_ptr() for t in (dw, dcb, dg, db)), C, Co, chunks,
+                      part_dg.shape[1])
+    return dw, dcb, dg, db
 
 
 def pointwise_bwd_reduce_cuda(x3, gamma, beta, mean, inv, w, dy) -> Tuple[torch.Tensor, ...]:
-    """Pass A: ``pointwise_bwd_reduce`` then ``pointwise_bwd_finalize`` →
-    dW [C, Co], dcb [Co], dγ [C], dβ [C], float32."""
+    """Pass A: the partials, then ``pointwise_bwd_finalize`` → dW [C, Co],
+    dcb [Co], dγ [C], dβ [C], float32."""
     return pointwise_bwd_finalize_cuda(
         *pointwise_bwd_partials_cuda(x3, gamma, beta, mean, inv, w, dy))
 
@@ -137,17 +187,16 @@ def pointwise_bwd_dx_cuda(x3, gamma, beta, mean, inv, w, dy, dg, db) -> torch.Te
     """``pointwise_bwd_dx``: dx [B, C, S] in x's dtype from pass A's dγ, dβ."""
     (B, C, S), Co = x3.shape, w.shape[1]
     dx = torch.empty_like(x3)
-    with torch.cuda.device(x3.device):
-        _launch("pointwise_bwd_dx", *_args(x3, gamma, beta, mean, inv, w), dy.data_ptr(),
-                dg.data_ptr(), db.data_ptr(), dx.data_ptr(), B, C, Co, S,
-                _DTYPE_CODE[x3.dtype], _DTYPE_CODE[w.dtype])
+    with _build.on_device(x3.device):
+        _build.launch(LAUNCHES, "pointwise_bwd_dx", *_args(x3, gamma, beta, mean, inv, w),
+                      dy.data_ptr(), dg.data_ptr(), db.data_ptr(), dx.data_ptr(), B, C, Co, S,
+                      _DTYPE_CODE[x3.dtype], _DTYPE_CODE[w.dtype])
     return dx
 
 
 class _CudaPointwise(torch.autograd.Function):
-    """Forward ``pointwise_fwd``; backward pass A (``pointwise_bwd_reduce``,
-    ``pointwise_bwd_finalize``) then pass B (``pointwise_bwd_dx``), both
-    recomputing xhat and h from the saved x."""
+    """Forward; backward pass A (partials and their finalize) then pass B,
+    both recomputing xhat and h from the saved x."""
 
     @staticmethod
     def forward(ctx, x3, gamma, beta, mean, inv, w, cb):

@@ -35,14 +35,6 @@ MAX_CHANNELS = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(name: str, *args) -> None:
-    lib = _build.load_library()
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
-
-
 def _check(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
            targets: torch.Tensor) -> None:
     for name, x in (("h", h), ("kernel", kernel), ("bias", bias), ("targets", targets)):
@@ -77,10 +69,10 @@ def texthead_fwd_cuda(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     (R, C), V = h.shape, kernel.shape[1]
     lp = h.new_empty((R,), dtype=torch.float32)
     lse = torch.empty_like(lp)
-    with torch.cuda.device(h.device):
-        _launch("texthead_fwd", h.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                targets.data_ptr(), lp.data_ptr(), lse.data_ptr(), R, C, V,
-                _DTYPE_CODE[h.dtype])
+    with _build.on_device(h.device):
+        _build.launch(LAUNCHES, "texthead_fwd", h.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+                      targets.data_ptr(), lp.data_ptr(), lse.data_ptr(), R, C, V,
+                      _DTYPE_CODE[h.dtype])
     return lp, lse
 
 
@@ -88,10 +80,10 @@ def texthead_bwd_dh_cuda(h, kernel, bias, targets, lse, g) -> torch.Tensor:
     """``texthead_bwd_dh``: dh [R, C] in h's dtype; g [R] float32."""
     (R, C), V = h.shape, kernel.shape[1]
     dh = torch.empty_like(h)
-    with torch.cuda.device(h.device):
-        _launch("texthead_bwd_dh", h.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                targets.data_ptr(), lse.data_ptr(), g.data_ptr(), dh.data_ptr(), R, C, V,
-                _DTYPE_CODE[h.dtype])
+    with _build.on_device(h.device):
+        _build.launch(LAUNCHES, "texthead_bwd_dh", h.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+                      targets.data_ptr(), lse.data_ptr(), g.data_ptr(), dh.data_ptr(), R, C, V,
+                      _DTYPE_CODE[h.dtype])
     return dh
 
 
@@ -110,13 +102,13 @@ def texthead_bwd_dw_partials_cuda(h, kernel, bias, targets, lse, g
     """``texthead_bwd_dw`` on bfloat16 inputs: the partial sums of its row
     splits, dW [splits, C, V] and db [splits, V], float32."""
     (R, C), V = h.shape, kernel.shape[1]
-    with torch.cuda.device(h.device):
+    with _build.on_device(h.device):
         splits = _dw_splits(h.device.index, R, C, V)
         part_dw = torch.empty((splits, C, V), dtype=torch.float32, device=h.device)
         part_db = torch.empty((splits, V), dtype=torch.float32, device=h.device)
-        _launch("texthead_bwd_dw", h.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                targets.data_ptr(), lse.data_ptr(), g.data_ptr(), part_dw.data_ptr(),
-                part_db.data_ptr(), R, C, V, splits, _DTYPE_CODE[h.dtype])
+        _build.launch(LAUNCHES, "texthead_bwd_dw", h.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+                      targets.data_ptr(), lse.data_ptr(), g.data_ptr(), part_dw.data_ptr(),
+                      part_db.data_ptr(), R, C, V, splits, _DTYPE_CODE[h.dtype])
     return part_dw, part_db
 
 
@@ -127,9 +119,9 @@ def texthead_bwd_dw_finalize_cuda(part_dw: torch.Tensor, part_db: torch.Tensor
     splits, C, V = part_dw.shape
     dw = part_dw.new_empty((C, V))
     db = part_db.new_empty((V,))
-    with torch.cuda.device(part_dw.device):
-        _launch("texthead_bwd_dw_finalize", part_dw.data_ptr(), part_db.data_ptr(),
-                dw.data_ptr(), db.data_ptr(), splits, C, V)
+    with _build.on_device(part_dw.device):
+        _build.launch(LAUNCHES, "texthead_bwd_dw_finalize", part_dw.data_ptr(), part_db.data_ptr(),
+                      dw.data_ptr(), db.data_ptr(), splits, C, V)
     return dw, db
 
 
@@ -143,10 +135,10 @@ def texthead_bwd_dw_cuda(h, kernel, bias, targets, lse, g) -> Tuple[torch.Tensor
     (R, C), V = h.shape, kernel.shape[1]
     dw = torch.empty((C, V), dtype=torch.float32, device=h.device)
     db = torch.empty((V,), dtype=torch.float32, device=h.device)
-    with torch.cuda.device(h.device):
-        _launch("texthead_bwd_dw", h.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                targets.data_ptr(), lse.data_ptr(), g.data_ptr(), dw.data_ptr(),
-                db.data_ptr(), R, C, V, 1, _DTYPE_CODE[h.dtype])
+    with _build.on_device(h.device):
+        _build.launch(LAUNCHES, "texthead_bwd_dw", h.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+                      targets.data_ptr(), lse.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                      db.data_ptr(), R, C, V, 1, _DTYPE_CODE[h.dtype])
     return dw, db
 
 

@@ -21,8 +21,9 @@ the order of the sums and the SFU's ex2 differ), gradients
 |Δ| ≤ 2e-2·max|ref| (the bfloat16 backward runs on tensor cores: the same
 products in another order), and two runs bitwise equal. K3 in float32 with TF32 off against the plain
 versions accumulated in float64: y and dx rtol 1e-5, dW, dcb, dγ, dβ rtol
-1e-4, all atol 1e-5·max|ref|; in bfloat16 against the plain versions on the
-same inputs: y |Δ| ≤ 1e-2·max|ref|, gradients |Δ| ≤ 2e-2·max|ref|.
+1e-4, all atol 1e-5·max|ref|; in bfloat16 (the forward and pass A on
+tensor cores) against the plain versions on the same inputs: y
+|Δ| ≤ 1e-2·max|ref|, gradients |Δ| ≤ 2e-2·max|ref|.
 """
 
 import numpy as np
@@ -320,12 +321,57 @@ def test_pointwise_kernels_match_plain_bf16(device, B, C, Co, S, x_dtype):
         assert float(err) <= frac * float(r.float().abs().max())
 
 
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,C,Co,S", [(5, 3, 130, 33), (2, 48, 40, 7), (7, 48, 40, 1),
+                                      (256, 320, 320, 1), (3, 64, 80, 8), (9, 128, 72, 32),
+                                      (2, 100, 64, 128), (13, 192, 192, 16), (5, 64, 64, 2)])
+def test_pointwise_tc_kernels_match_plain_at_edges(device, B, C, Co, S, x_dtype):
+    """The tensor-core forward and pass A (bfloat16 W) at C or Co not a
+    multiple of 16, S = 1, S that neither divides nor is a multiple of the
+    64-row unit (element-wise loads), and R = B·S not a multiple of any
+    tile, against the plain versions on the same inputs."""
+    for transpose in (False, True):
+        args = _k3_case(device, B, C, Co, S, x_dtype, torch.bfloat16, transpose, seed=B + C + S)
+        got = chip_smoke.k3_run(args)
+        ref = chip_smoke.k3_plain(args)
+        torch.cuda.synchronize()
+        assert got[0].dtype == torch.bfloat16 and got[1].dtype == x_dtype
+        for a, r, frac in zip(got, (ref[0].to(torch.bfloat16),) + ref[1:], (1e-2,) + (2e-2,) * 5):
+            err = (a.float() - r.float()).abs().max()
+            assert float(err) <= frac * float(r.float().abs().max())
+
+
 def test_pointwise_backward_is_deterministic(device):
     """No atomics: pass A's sums have a fixed order."""
     args = _k3_case(device, 64, 128, 128, 256, torch.bfloat16, torch.bfloat16, seed=1)
     first = chip_smoke.k3_run(args)
     second = chip_smoke.k3_run(args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_pointwise_tc_pass_a_is_bitwise_deterministic_over_chunks(device):
+    """bfloat16 pass A at a C = 320 block of several row chunks: the
+    partials and their finalize give bitwise equal dW, dcb, dγ, dβ."""
+    args = _k3_case(device, 256, 320, 320, 16, torch.float32, torch.bfloat16, seed=2)
+    assert cuda_pointwise.reduce_tc_chunks(256 * 16, 320, 320, 4)[1] > 1
+    x3, g, b, m, inv, w, _, dy = args
+    first = cuda_pointwise.pointwise_bwd_reduce_cuda(x3, g, b, m, inv, w, dy)
+    second = cuda_pointwise.pointwise_bwd_reduce_cuda(x3, g, b, m, inv, w, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+def test_pointwise_dispatches_on_the_weight_dtype(device, w_dtype):
+    """A bfloat16 W launches the tensor-core forward and pass A, never the
+    float32 CUDA-core kernels, and a float32 W the reverse."""
+    args = _k3_case(device, 4, 64, 64, 64, torch.float32, w_dtype, seed=3)
+    before = dict(cuda_pointwise.LAUNCHES)
+    chip_smoke.k3_run(args)
+    added = {n: cuda_pointwise.LAUNCHES[n] - before[n] for n in before}
+    tc = int(w_dtype == torch.bfloat16)
+    assert added == {"pointwise_fwd": 1 - tc, "pointwise_fwd_tc": tc,
+                     "pointwise_bwd_reduce": 1 - tc, "pointwise_bwd_reduce_tc": tc,
+                     "pointwise_bwd_finalize": 1, "pointwise_bwd_dx": 1}
 
 
 def test_fused_block_on_cuda_launches_k3_and_matches_the_cpu(device):
@@ -346,7 +392,8 @@ def test_fused_block_on_cuda_launches_k3_and_matches_the_cpu(device):
         y = mod(xi)
         grads = torch.autograd.grad(torch.tanh(y).sum(), [xi, *mod.parameters()])
         outs.append((y, grads, mod.bn1.running_mean, mod.bn1.running_var))
-    assert all(cuda_pointwise.LAUNCHES[n] == before[n] + 1 for n in before)
+    # float32: the CUDA-core kernels, none of the bfloat16 tensor-core ones
+    assert all(cuda_pointwise.LAUNCHES[n] == before[n] + (not n.endswith("_tc")) for n in before)
     (y_c, g_c, m_c, v_c), (y_g, g_g, m_g, v_g) = outs
     torch.testing.assert_close(y_g.cpu(), y_c, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(m_g.cpu(), m_c, rtol=1e-5, atol=1e-6)

@@ -1,6 +1,8 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: ``InferenceSession``, ``create_train_state`` and the serve CLI default
-to ``"cuda"``, with no fallback to the CPU when there is no card."""
+to ``"cuda"``, with no fallback to the CPU when there is no card. And the
+model refuses the configuration knobs that the port has not ported
+(``bn_compute_dtype``, ``remat``) instead of ignoring them."""
 
 import inspect
 import json
@@ -10,6 +12,7 @@ import torch
 
 from mopoe_mimic_tpu_torch import serve
 from mopoe_mimic_tpu_torch.config import MopoeConfig
+from mopoe_mimic_tpu_torch.models.mmvae import MMVae
 from mopoe_mimic_tpu_torch.serve import InferenceSession
 from mopoe_mimic_tpu_torch.train.state import create_train_state
 
@@ -43,3 +46,23 @@ def test_entry_points_without_a_card_fail_instead_of_falling_back(tmp_path):
         serve.main(["--config", str(cfg_path), "--weights", str(weights),
                     "--out", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("knob,value", [("bn_compute_dtype", "compute"),
+                                        ("bn_compute_dtype", "bfloat16"),
+                                        ("remat", "blocks"), ("remat", "conv")])
+@pytest.mark.parametrize("entry", [MMVae, lambda cfg: create_train_state(cfg, device="cpu")],
+                         ids=["MMVae", "create_train_state"])
+def test_unported_knobs_raise(entry, knob, value):
+    """Every BatchNorm of the port runs in float32 and nothing is
+    rematerialised: a config that asks otherwise is refused, not run with
+    other numerics than the JAX package's."""
+    with pytest.raises(NotImplementedError, match=knob):
+        entry(MopoeConfig(**SMALL, **{knob: value}))
+
+
+def test_default_knobs_construct():
+    cfg = MopoeConfig(**SMALL)
+    assert (cfg.bn_compute_dtype, cfg.remat) == ("float32", "none")
+    MMVae(cfg)
+    create_train_state(cfg, device="cpu")

@@ -25,6 +25,7 @@ against the JAX package's, float32 on the CPU.
     two-pass wrapper of the fused op's Pallas core in interpret mode).
 """
 
+import math
 import warnings
 from pathlib import Path
 
@@ -44,6 +45,7 @@ from mopoe_mimic_tpu_torch.config import MopoeConfig
 from mopoe_mimic_tpu_torch.models import resblocks as TR
 from mopoe_mimic_tpu_torch.models.jax_import import state_dict_from_jax
 from mopoe_mimic_tpu_torch.models.mmvae import MMVae
+from mopoe_mimic_tpu_torch.ops import cuda_pointwise
 from mopoe_mimic_tpu_torch.ops import pointwise as PW
 from mopoe_mimic_tpu_torch.ops.cuda_pointwise import pointwise_cuda, reduce_chunks
 from mopoe_mimic_tpu_torch.train.state import create_train_state
@@ -225,12 +227,45 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         pointwise_cuda(x3, g, b, g, g, w, cb)
 
 
+# (B, C, S) of the flagship's 32 blocks, and odd ones
+FLAGSHIP_BLOCKS = [(256, 64, 4096), (256, 128, 1024), (256, 192, 256), (256, 256, 64),
+                   (256, 320, 16), (256, 64, 64), (256, 128, 32), (256, 192, 16), (256, 256, 8),
+                   (256, 256, 4), (256, 256, 2), (256, 320, 1), (256, 256, 16), (256, 192, 64),
+                   (256, 128, 256), (256, 64, 1024), (256, 320, 4), (256, 320, 8),
+                   (256, 256, 32)]
+ODD_BLOCKS = [(7, 3, 1), (5, 3, 33), (2, 48, 7), (3, 64, 25), (1, 2048, 1), (9, 130, 5)]
+
+
+def _chunkings(R, C, Co):
+    yield reduce_chunks(R, C, Co)
+    for x_bytes in (2, 4):
+        yield cuda_pointwise.reduce_tc_chunks(R, C, Co, x_bytes)
+
+
 @pytest.mark.parametrize("R,C,Co", [(1_048_576, 64, 64), (256, 320, 320), (4096, 320, 320),
-                                    (16384, 256, 256), (7, 3, 5)])
+                                    (16384, 256, 256), (7, 3, 5)]
+                         + [(B * S, C, C) for B, C, S in FLAGSHIP_BLOCKS + ODD_BLOCKS])
 def test_reduce_chunks_cover_the_rows(R, C, Co):
-    rows, chunks = reduce_chunks(R, C, Co)
-    assert rows % 64 == 0 and rows >= 64
-    assert (chunks - 1) * rows < R <= chunks * rows
+    """Both passes A's chunkings (float32 and bfloat16) cover every row
+    exactly once, in chunks of whole 64-row tiles."""
+    for rows, chunks in _chunkings(R, C, Co):
+        assert rows % 64 == 0 and rows >= 64
+        assert (chunks - 1) * rows < R <= chunks * rows
+        starts = range(0, chunks * rows, rows)
+        covered = [n for start in starts for n in range(start, min(R, start + rows))]
+        assert covered == list(range(R))
+
+
+@pytest.mark.parametrize("B,C,S", FLAGSHIP_BLOCKS)
+@pytest.mark.parametrize("x_bytes", [2, 4])
+def test_tc_pass_a_scratch_stays_below_its_inputs(B, C, S, x_bytes):
+    """bfloat16 pass A at every flagship block: at most one wave of blocks,
+    and its partials' traffic below the bytes it must read."""
+    R = B * S
+    rows, chunks = cuda_pointwise.reduce_tc_chunks(R, C, C, x_bytes)
+    assert chunks * math.ceil(C / 64) ** 2 <= cuda_pointwise.WAVE_BLOCKS
+    assert (cuda_pointwise.pass_a_scratch_bytes(R, C, C, chunks)
+            < cuda_pointwise.pass_a_input_bytes(R, C, C, x_bytes))
 
 
 # ---------------------------------------------------------------------------
@@ -458,14 +493,28 @@ def test_chip_smoke_k3_phase_and_fused_training_rehearse_on_cpu(monkeypatch):
         out = chip_smoke.k3_against_plain(torch.device("cpu"))
     keys = {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert set(out) == set(chip_smoke.K3) and all(keys <= set(v) for v in out.values())
-    assert out["pointwise_fwd"]["block_ms"].keys() == {"fused_fwd", "fused_fwd_bwd",
-                                                       "unfused_fwd", "unfused_fwd_bwd"}
-    # pass A's bound at (4, 32, 32, 8×8), x bf16: x, dy and W read once, the
-    # statistics read once, dW, dcb, dγ, dβ written once; no partials
+    assert out["pointwise_fwd_tc"]["block_ms"].keys() == {"fused_fwd", "fused_fwd_bwd",
+                                                          "unfused_fwd", "unfused_fwd_bwd"}
+    # bf16 pass A's bound at (4, 32, 32, 8×8), x bf16: x, dy and W read
+    # once, the statistics read once, dW, dcb, dγ, dβ written once; no partials
     moved = 2 * (4 * 32 * 64 * 2) + 32 * 32 * 2 + 4 * 32 * 4 + (32 * 32 + 3 * 32) * 4
-    assert out["pointwise_bwd_reduce"]["bound_ms"] == pytest.approx(
+    assert out["pointwise_bwd_reduce_tc"]["bound_ms"] == pytest.approx(
         moved / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    tc = out["pointwise_bwd_reduce_tc"]
+    assert tc["partials_ms"] == 1.0 and 0 < tc["scratch_bytes"] < tc["input_bytes"]
+    # the float32 CUDA-core forward and pass A, timed at the same block in float32
     assert out["pointwise_bwd_reduce"]["partials_ms"] == 1.0
+    assert out["pointwise_fwd"]["bound_ms"] > out["pointwise_fwd_tc"]["bound_ms"]
+
+    # phase 7's per-block-shape profile, the profiler's figures stood in for
+    names = ("pointwise_fwd_tc", "pointwise_bwd_reduce_tc", "pointwise_bwd_finalize_kernel",
+             "pointwise_bwd_dx_kernel")
+    monkeypatch.setattr(chip_smoke, "device_us_by_kernel",
+                        lambda fn, calls=5: (fn(), dict.fromkeys(names, 2.0))[1])
+    shapes = {(4, 32, 8, 32, torch.bfloat16): 2, (3, 64, 1, 64, torch.float32): 1}
+    assert chip_smoke.k3_block_profile(shapes, torch.device("cpu"), "card") == {
+        "pointwise_fwd_tc": 6.0, "pointwise_bwd_reduce_tc": 6.0, "pointwise_bwd_finalize": 6.0,
+        "pointwise_bwd_dx": 6.0}
 
     cfg = MopoeConfig(**KW, **CASE, lr_warmup_steps=300)
     run = chip_smoke.drive_training(cfg, "cpu", kernels=(), per_step={}, warmup=1, steps=1)
