@@ -11,8 +11,8 @@ any failure of which exits non-zero:
   2. build: the CUDA kernels from ``mopoe_mimic_tpu_torch/csrc`` into
      ``build/kernels/``, one nvcc per source, all at once; for the
      tensor-core kernels (K2's bfloat16 ``texthead_fwd``, ``texthead_bwd_dh``,
-     ``texthead_bwd_dw``; K3's ``pointwise_fwd_tc`` and
-     ``pointwise_bwd_reduce_tc``) ptxas's registers and spills and the count
+     ``texthead_bwd_dw``; K3's ``pointwise_fwd_tc``, ``pointwise_bwd_reduce_tc``
+     and ``pointwise_bwd_dx_tc``) ptxas's registers and spills and the count
      of HMMA/HGMMA instructions in their SASS (``cuobjdump -sass``), which
      must not be 0 in any instantiation;
   3. K1 against its plain PyTorch version on the card, M ∈ {1, 2, 3},
@@ -38,8 +38,8 @@ any failure of which exits non-zero:
      log_softmax → target gather, PyTorch calls), forward and forward +
      backward;
      K3 (forward, pass A's partials and their finalize, pass B; in
-     bfloat16 the forward and pass A on tensor cores, ``pointwise_fwd_tc``
-     and ``pointwise_bwd_reduce_tc``, in float32 on the CUDA cores) against
+     bfloat16 on tensor cores, ``pointwise_fwd_tc``, ``pointwise_bwd_reduce_tc``
+     and ``pointwise_bwd_dx_tc``, in float32 on the CUDA cores) against
      the plain versions at the flagship's block shapes (B, C, Co, spatial) =
      (3, 64, 64, 5×5) with a conv bias, (256, 64, 64, 64×64) (the largest),
      (256, 320, 320, 1), (256, 320, 320, 4×4) and (256, 256, 256, 64)
@@ -55,7 +55,15 @@ any failure of which exits non-zero:
      bound; its chunks and scratch bytes beside the bytes of its inputs),
      the float32 forward and pass A at the largest block, and the fused op
      against the unfused cuDNN composition (the block's bn1 → relu → conv1
-     modules), forward and forward + backward;
+     modules), forward and forward + backward; the fused op's statistics
+     (``pointwise_stats`` and its finalize, with bn1's running update) at
+     every K3_CASES shape, x float32 and bfloat16: mean and var within
+     1e-5·|ref| of a float64 oracle (the mean's floor 1e-6·sqrt(var)), inv
+     within 1 ulp of 1/sqrt(var + eps) of the kernel's var, the running
+     buffers within rtol 1e-6 (atol 1e-6·max|ref|) of the plain update, two
+     runs bitwise equal;
+     timed at K3_TIMED against the plain path (``batch_stats``,
+     ``inv_std``, ``update_running_stats``) and ``torch.var_mean``;
   4. the serving slice at the flagship configuration's full width
      (configs/flagship.json: 128 px, word text len 128, vocab 3517,
      DIM 64, class_dim 64; random weights from seed 0, randomised BN
@@ -72,18 +80,22 @@ any failure of which exits non-zero:
      docs/STABILITY.md), weights from seed 0 and a seeded batch;
      3 warm-up and 10 timed steps. Every loss term finite, parameters and
      BN running statistics changed, grad_norm finite and > 0, and K1
-     forward, K1 backward launched in every step and K2's four kernels
-     exactly once; the step's p50 and samples/s, then a profile of 3 steps
+     forward, K1 backward launched in every step, K2's four kernels
+     exactly once and no K3 kernel; the step's p50 and samples/s, then a
+     profile of 3 steps
      (device idle share, device time by kernel and the port's kernels');
      then the same run with ``fused_pointwise=True`` as well, with each of
-     K3's bfloat16 kernels (``pointwise_fwd_tc``, ``pointwise_bwd_reduce_tc``,
-     ``pointwise_bwd_finalize``, ``pointwise_bwd_dx``) launched exactly 32
-     times per step (one per residual block) and the float32 forward and
-     pass A never, its p50, samples/s and profile beside the first; then both
-     steps timed in turns (A B B A, 5 steps a turn), Σ of K3's bounds
+     K3's bfloat16 kernels (``pointwise_stats``, ``pointwise_stats_finalize``,
+     ``pointwise_fwd_tc``, ``pointwise_bwd_reduce_tc``,
+     ``pointwise_bwd_finalize``, ``pointwise_bwd_dx_tc``) launched exactly
+     32 times per step (one per residual block) and the float32 forward and
+     passes never, its p50, samples/s and profile beside the first; then
+     both steps timed in turns (A B B A, 5 steps a turn), Σ of K3's bounds
      over one step's 32 blocks, each from its launch's inputs, and K3's
-     device time at each of the step's block shapes (profiled, beside the
-     shape's bounds) summed over the step;
+     device time at each of the step's block shapes (each kernel profiled
+     through its own wrapper, by CUDA events where the profiler recorded
+     none of it; beside the shape's bounds, and the plain path's
+     statistics) summed over the step;
   8. one train step on the GPU (kernels) against one on the CPU (plain
      versions): flagship width, batch 8, float32, TF32 off, dropout 0,
      eps = 0, same weights: every loss term within rtol 1e-4; the gradients
@@ -92,8 +104,8 @@ any failure of which exits non-zero:
      the tensor plus 1e-3·max|g| of the model (float32's own floor on the
      tensors that are ill-conditioned at init: ``gpu_step_against_cpu``);
      then the same with ``fused_pointwise=True`` (K3's own accuracy is
-     judged by phase 3), which launches K3's float32 kernels and none of
-     its bfloat16 ones.
+     judged by phase 3), which launches K3's float32 kernels and the
+     statistics and none of its bfloat16 ones.
 
 The last lines are a JSON object of the kernels (each with its launches on
 its path, error, time, plain time, the least time the card could take for
@@ -145,6 +157,11 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
     "pointwise_bwd_reduce_tc": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:88"),
     "pointwise_bwd_finalize": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:88"),
     "pointwise_bwd_dx": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:119"),
+    "pointwise_bwd_dx_tc": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:119"),
+    # the fused op's batch statistics, which the JAX package leaves to XLA
+    # outside its Pallas kernel, and bn1's running update
+    "pointwise_stats": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:285"),
+    "pointwise_stats_finalize": (K3_SOURCE, "mopoe_mimic_tpu/ops/pallas_pointwise.py:285"),
 }
 K3 = tuple(name for name, (source, _) in KERNELS.items() if source == K3_SOURCE)
 K12 = tuple(name for name in KERNELS if name not in K3)  # the fused_text_head run's kernels
@@ -153,13 +170,14 @@ K2_PER_STEP = {"texthead_fwd": 1, "texthead_bwd_dh": 1, "texthead_bwd_dw": 1,
                "texthead_bwd_dw_finalize": 1}  # launches per bf16 train step
 # bfloat16 only: float32 dW has no row splits to finalize, and K3's
 # tensor-core kernels take a bfloat16 W; float32 only: K3's CUDA-core
-# forward and pass A, which a bfloat16 call never reaches
-BF16_ONLY = ("texthead_bwd_dw_finalize", "pointwise_fwd_tc", "pointwise_bwd_reduce_tc")
-F32_ONLY = ("pointwise_fwd", "pointwise_bwd_reduce")
+# forward and passes, which a bfloat16 call never reaches
+BF16_ONLY = ("texthead_bwd_dw_finalize", "pointwise_fwd_tc", "pointwise_bwd_reduce_tc",
+             "pointwise_bwd_dx_tc")
+F32_ONLY = ("pointwise_fwd", "pointwise_bwd_reduce", "pointwise_bwd_dx")
 K3_BF16 = tuple(name for name in K3 if name not in F32_ONLY)  # the bf16 step's K3 kernels
 # the tensor-core kernels (bfloat16), by the name of their __global__ function
 TENSOR_CORE_KERNELS = ("texthead_fwd_tc", "texthead_bwd_dh_tc", "texthead_bwd_dw_tc",
-                       "pointwise_fwd_tc", "pointwise_bwd_reduce_tc")
+                       "pointwise_fwd_tc", "pointwise_bwd_reduce_tc", "pointwise_bwd_dx_tc")
 NAMES = ("PA", "Lateral", "text")
 FLAGSHIP_HEAD = (256, 128, 64, 3517)  # K2 at the flagship: (B, L, C, V)
 TRAIN_WARMUP_STEPS = 300  # lr_warmup_steps of the training phase
@@ -648,23 +666,36 @@ def k3_bounds(x3, w, dy) -> dict:
     [C, Co] and dy [B, Co, S]: each input of the function read once (the
     four per-channel statistics and the conv bias in float32), each output
     written once (y in W's dtype, dx in x's, dW, dcb, dγ, dβ in float32);
-    the products at the peak of W's dtype. The partials of pass A are
-    scratch of this design, not work of the function: the finalize's share
-    of pass A's bound is the writing of pass A's outputs. The float32 and
-    tensor-core kernels of one function share its bound."""
+    the products at the peak of W's dtype. The partials of pass A and of
+    the statistics are scratch of this design, not work of the function:
+    a finalize's share of its function's bound is the writing of the
+    outputs. The float32 and tensor-core kernels of one function share its
+    bound."""
     B, C, S = x3.shape
     Co = w.shape[1]
     R, stats, grads = B * S, 4 * C * 4, (C * Co + Co + 2 * C) * 4
     product = 2 * R * C * Co
     fwd = least_time(nbytes(x3, w) + Co * 4 + stats + R * Co * w.element_size(), product, w.dtype)
     pass_a = least_time(nbytes(x3, w, dy) + grads + stats, 2 * product, w.dtype)
+    dx = least_time(2 * nbytes(x3) + nbytes(w, dy) + 2 * C * 4 + stats, product, w.dtype)
     return {
         "pointwise_fwd": fwd, "pointwise_fwd_tc": fwd,
         "pointwise_bwd_reduce": pass_a, "pointwise_bwd_reduce_tc": pass_a,
         "pointwise_bwd_finalize": least_time(grads, 0, torch.float32),
-        "pointwise_bwd_dx": least_time(2 * nbytes(x3) + nbytes(w, dy) + 2 * C * 4 + stats,
-                                       product, w.dtype),
+        "pointwise_bwd_dx": dx, "pointwise_bwd_dx_tc": dx, **k3_stats_bounds(x3),
     }
+
+
+def k3_stats_bounds(x3) -> dict:
+    """least_time of the statistics (``pointwise_stats`` + its finalize, one
+    function) on x3 [B, C, S]: x read once; mean, var and inv written; bn1's
+    two running buffers read and written; four float32 operations an
+    element (x − pivot, its sum, its square's FMA). The finalize's share is
+    the outputs' bytes."""
+    B, C, S = x3.shape
+    out = (3 * C + 2 * 2 * C) * 4
+    return {"pointwise_stats": least_time(nbytes(x3) + out, 4 * B * S * C, torch.float32),
+            "pointwise_stats_finalize": least_time(out, 0, torch.float32)}
 
 
 def k3_names(w) -> dict:
@@ -672,38 +703,50 @@ def k3_names(w) -> dict:
     tc = w.dtype == torch.bfloat16
     return {"fwd": "pointwise_fwd_tc" if tc else "pointwise_fwd",
             "pass_a": "pointwise_bwd_reduce_tc" if tc else "pointwise_bwd_reduce",
-            "finalize": "pointwise_bwd_finalize", "dx": "pointwise_bwd_dx"}
+            "finalize": "pointwise_bwd_finalize",
+            "dx": "pointwise_bwd_dx_tc" if tc else "pointwise_bwd_dx",
+            "stats": "pointwise_stats", "stats_finalize": "pointwise_stats_finalize"}
 
 
 def k3_step_bounds(run: dict) -> dict:
     """Σ over one train step of K3's bounds (``k3_bounds`` on the inputs
     each launch is given), by the kernel each launch went to, from one more
-    step of ``run`` with the three launchers wrapped; the launches counted;
+    step of ``run`` with the four launchers wrapped; the launches counted;
     and the blocks' shapes: {(B, C, S, Co, x dtype): blocks of the step}."""
     totals, calls, shapes = {}, {}, {}
     originals = {n: getattr(cuda_pointwise, n) for n in
-                 ("pointwise_fwd_cuda", "pointwise_bwd_reduce_cuda", "pointwise_bwd_dx_cuda")}
+                 ("pointwise_fwd_cuda", "pointwise_bwd_reduce_cuda", "pointwise_bwd_dx_cuda",
+                  "pointwise_stats_cuda")}
+
+    def add(bounds, kernels):
+        for name in kernels:
+            totals[name] = totals.get(name, 0.0) + bounds[name]["bound_ms"]
+            calls[name] = calls.get(name, 0) + 1
 
     def wrap(fn_name, functions):
         def recorded(x3, gamma, beta, mean, inv, w, *rest):
             out = originals[fn_name](x3, gamma, beta, mean, inv, w, *rest)
             dy = rest[0] if fn_name != "pointwise_fwd_cuda" else out
-            bounds, names = k3_bounds(x3, w, dy), k3_names(w)
             if fn_name == "pointwise_fwd_cuda":
                 key = (*x3.shape, w.shape[1], x3.dtype)
                 shapes[key] = shapes.get(key, 0) + 1
-            for function in functions:
-                name = names[function]
-                totals[name] = totals.get(name, 0.0) + bounds[name]["bound_ms"]
-                calls[name] = calls.get(name, 0) + 1
+            names = k3_names(w)
+            add(k3_bounds(x3, w, dy), [names[f] for f in functions])
             return out
         return recorded
+
+    def stats_recorded(x3, eps, running=None):
+        out = originals["pointwise_stats_cuda"](x3, eps, running)
+        bounds = k3_stats_bounds(x3)
+        add(bounds, bounds)
+        return out
 
     try:
         cuda_pointwise.pointwise_fwd_cuda = wrap("pointwise_fwd_cuda", ("fwd",))
         cuda_pointwise.pointwise_bwd_reduce_cuda = wrap("pointwise_bwd_reduce_cuda",
                                                         ("pass_a", "finalize"))
         cuda_pointwise.pointwise_bwd_dx_cuda = wrap("pointwise_bwd_dx_cuda", ("dx",))
+        cuda_pointwise.pointwise_stats_cuda = stats_recorded
         run["step"](run["state"], run["batch"])
         torch.cuda.synchronize()
     finally:
@@ -714,64 +757,138 @@ def k3_step_bounds(run: dict) -> dict:
     return totals, shapes
 
 
-def device_us_by_kernel(fn, calls: int = 5) -> dict:
-    """Mean device µs per call of ``fn`` by kernel (the __global__
-    function's name), from ``torch.profiler`` over ``calls`` calls."""
+def device_us_by_kernel(fn, calls: int = 5, expect=(), attempts: int = 6) -> dict:
+    """Device µs per call of ``fn`` by kernel (the __global__ function's
+    name), from ``torch.profiler`` over ``calls`` calls: each kernel's mean
+    time a launch times its launches a call. On an H100 the profiler now and
+    then records none of a session's kernels, several sessions in a row, or
+    only some of their launches: sessions are taken until every kernel of
+    ``expect`` has a session that recorded all its launches (or a first
+    session recorded anything, without ``expect``), up to ``attempts``. Each
+    kernel's time comes from the first session that recorded all its
+    launches, else from the last that recorded some (the mean a launch
+    standing for the dropped ones); a kernel no session recorded is
+    missing from the result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = kernel_name(e.name)
-            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / calls
-    return out
+    whole, partial = {}, {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, launches = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = kernel_name(e.name)
+                total[name] = total.get(name, 0.0) + e.time_range.end - e.time_range.start
+                launches[name] = launches.get(name, 0) + 1
+        for name, t in total.items():
+            if launches[name] % calls == 0:
+                whole.setdefault(name, t / calls)
+            else:
+                partial[name] = t / launches[name] * max(1, round(launches[name] / calls))
+        if (all(name in whole for name in expect) if expect else whole or partial):
+            break
+    return {**partial, **whole}
+
+
+def device_us(fn, name: str = None) -> tuple:
+    """(device µs per call of ``fn``, how it was taken): the profiled time
+    of kernel ``name`` (all of ``fn``'s device ops without a name), or, where
+    no profiler session recorded it, the median of 20 calls timed with CUDA
+    events (``cuda_ms``: the host's dispatch of each call included, so an
+    upper bound on the device time)."""
+    times = device_us_by_kernel(fn, expect=(name,) if name else ())
+    t = times.get(name) if name else sum(times.values())
+    if t:
+        return t, "profiled"
+    return cuda_ms(fn, calls=20, warmup=2) * 1e3, "CUDA events"
+
+
+def plain_stats(x3, eps, running):
+    """The statistics as the fused op took them before ``pointwise_stats``
+    (and still does on the CPU): ``batch_stats``, ``inv_std`` and
+    ``update_running_stats``, eager PyTorch calls."""
+    mean, var = PW.batch_stats(x3)
+    inv = PW.inv_std(var, eps)
+    PW.update_running_stats(*running, mean, var, x3.shape[0] * x3.shape[2])
+    return mean, var, inv
+
+
+def running_buffers(C: int, device, seed: int):
+    """bn1's running buffers, seeded: (running_mean, running_var, momentum 0.1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (0.1 * torch.randn(C, generator=gen, device=device),
+            0.5 + torch.rand(C, generator=gen, device=device), 0.1)
 
 
 def k3_block_profile(shapes: dict, device, card_line: str) -> dict:
     """Device time of K3's bfloat16 kernels at each block shape of the
-    fused step (``device_us_by_kernel``: the mean of 5 calls of each
-    function on seeded inputs of the shape, ``k3_case``), beside the
-    shape's bounds: {kernel: Σ over the step's blocks (µs)}, one line
-    printed per shape."""
+    fused step (``device_us``: each kernel through its own wrapper, the mean
+    of 5 calls on seeded inputs of the shape, ``k3_case``), beside the
+    shape's bounds, and of the statistics as the plain path takes them
+    (``plain_stats``, every device op of it): {kernel: Σ over the step's
+    blocks (µs)}, one line printed per shape, naming any time that the
+    profiler did not record and CUDA events took instead."""
     step = {}
     for (B, C, S, Co, x_dtype), blocks in sorted(shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1]
                                                  * kv[0][2]):
         x3, g, b, m, inv, w, cb, dy = k3_case(device, B, C, Co, (S,), False, False, x_dtype,
                                               torch.bfloat16, seed=70)
-        _, _, dg, db = cuda_pointwise.pointwise_bwd_reduce_cuda(x3, g, b, m, inv, w, dy)
-        times = {
-            **device_us_by_kernel(
-                lambda: cuda_pointwise.pointwise_fwd_cuda(x3, g, b, m, inv, w, cb)),
-            **device_us_by_kernel(
-                lambda: cuda_pointwise.pointwise_bwd_reduce_cuda(x3, g, b, m, inv, w, dy)),
-            **device_us_by_kernel(
+        running = running_buffers(C, device, seed=71)
+        per = cuda_pointwise.stats_chunks(B, C, S, x3.element_size())[0]
+        part = cuda_pointwise.pointwise_stats_partials_cuda(x3)
+        parts = cuda_pointwise.pointwise_bwd_partials_cuda(x3, g, b, m, inv, w, dy)
+        dg, db = cuda_pointwise.pointwise_bwd_finalize_cuda(*parts)[2:]
+        kernels = {
+            "pointwise_stats": ("pointwise_stats_kernel",
+                                lambda: cuda_pointwise.pointwise_stats_partials_cuda(x3)),
+            "pointwise_stats_finalize": (
+                "pointwise_stats_finalize_kernel",
+                lambda: cuda_pointwise.pointwise_stats_finalize_cuda(part, B, S, per, 1e-5,
+                                                                     running)),
+            "pointwise_fwd_tc": ("pointwise_fwd_tc", lambda: cuda_pointwise.pointwise_fwd_cuda(
+                x3, g, b, m, inv, w, cb)),
+            "pointwise_bwd_reduce_tc": (
+                "pointwise_bwd_reduce_tc",
+                lambda: cuda_pointwise.pointwise_bwd_partials_cuda(x3, g, b, m, inv, w, dy)),
+            "pointwise_bwd_finalize": ("pointwise_bwd_finalize_kernel",
+                                       lambda: cuda_pointwise.pointwise_bwd_finalize_cuda(*parts)),
+            "pointwise_bwd_dx_tc": (
+                "pointwise_bwd_dx_tc",
                 lambda: cuda_pointwise.pointwise_bwd_dx_cuda(x3, g, b, m, inv, w, dy, dg, db))}
-        kernels = {"pointwise_fwd_tc": "pointwise_fwd_tc",
-                   "pointwise_bwd_reduce_tc": "pointwise_bwd_reduce_tc",
-                   "pointwise_bwd_finalize": "pointwise_bwd_finalize_kernel",
-                   "pointwise_bwd_dx": "pointwise_bwd_dx_kernel"}
-        got = {k: times.get(v, 0.0) for k, v in kernels.items()}
-        check(all(got.values()), f"K3 profile {(B, C, S)}: a kernel left no device time: {times}")
+        got, by_events = {}, []
+        for k, (name, fn) in kernels.items():
+            got[k], how = device_us(fn, name)
+            if how != "profiled":
+                by_events.append(k)
+        got["plain_stats"], how = device_us(lambda: plain_stats(x3, 1e-5, running))
+        if how != "profiled":
+            by_events.append("plain_stats")
+        check(all(t > 0 for t in got.values()), f"K3 profile {(B, C, S)}: a kernel took no "
+                                                f"device time: {got}")
         for k, t in got.items():
             step[k] = step.get(k, 0.0) + t * blocks
         bounds = k3_bounds(x3, w, dy)
         chunks = cuda_pointwise.reduce_tc_chunks(B * S, C, Co, x3.element_size())[1]
         print(f"K3 block (B,C,S)=({B}, {C}, {S}) x {str(x_dtype)[6:]} ×{blocks} a step, device "
-              f"µs (profiled, mean of 5): pointwise_fwd_tc {got['pointwise_fwd_tc']:.1f} (bound "
+              f"µs (profiled, mean of 5): statistics {got['pointwise_stats']:.1f} + finalize "
+              f"{got['pointwise_stats_finalize']:.1f} (bound "
+              f"{bounds['pointwise_stats']['bound_ms'] * 1e3:.1f}; plain "
+              f"{got['plain_stats']:.1f}), pointwise_fwd_tc {got['pointwise_fwd_tc']:.1f} (bound "
               f"{bounds['pointwise_fwd_tc']['bound_ms'] * 1e3:.1f}), pass A "
               f"{got['pointwise_bwd_reduce_tc']:.1f} + finalize "
               f"{got['pointwise_bwd_finalize']:.1f} (bound "
               f"{bounds['pointwise_bwd_reduce_tc']['bound_ms'] * 1e3:.1f}; {chunks} chunks), "
-              f"pointwise_bwd_dx {got['pointwise_bwd_dx']:.1f} (bound "
-              f"{bounds['pointwise_bwd_dx']['bound_ms'] * 1e3:.1f})")
-        del x3, g, b, m, inv, w, cb, dy, dg, db
+              f"pointwise_bwd_dx_tc {got['pointwise_bwd_dx_tc']:.1f} (bound "
+              f"{bounds['pointwise_bwd_dx_tc']['bound_ms'] * 1e3:.1f}; rows "
+              f"{cuda_pointwise.dx_tc_rows(B * S, C)})"
+              + (f"; by CUDA events, not profiled: {', '.join(by_events)}" if by_events else ""))
+        del x3, g, b, m, inv, w, cb, dy, dg, db, running, part, parts
     print("K3 per fused_pointwise step by block shape, Σ device µs: "
           + ", ".join(f"{k} {t:.1f}" for k, t in step.items()) + f" [{card_line}]")
     return step
@@ -795,12 +912,12 @@ def k3_plain(args, acc=None):
 def k3_against_plain(device: torch.device) -> dict:
     """K3's kernels against the plain versions at the flagship's block
     shapes, both conv1 layouts: float32 (the CUDA-core kernels; plain
-    accumulated in float64) and bfloat16 (the tensor-core forward and pass
-    A; each case run twice, every output bitwise equal). Then timed: the
-    bfloat16 kernels at K3_TIMED against the plain versions, with pass A's
-    scratch bytes beside the bytes of its inputs, and the fused op against
-    the unfused cuDNN composition; the float32 forward and pass A at the
-    largest block."""
+    accumulated in float64) and bfloat16 (the tensor-core forward and
+    passes; each case run twice, every output bitwise equal). Then timed:
+    the bfloat16 kernels at K3_TIMED against the plain versions, with pass
+    A's scratch bytes beside the bytes of its inputs, and the fused op
+    against the unfused cuDNN composition; the float32 forward and passes
+    at the largest block. The statistics: ``k3_stats_against_plain``."""
     def close(got, ref, rtol, atol_frac, what):
         ref = ref.double()
         err = (got.double() - ref).abs()
@@ -833,7 +950,7 @@ def k3_against_plain(device: torch.device) -> dict:
                           f"K3 {(B, C, Co, spatial)} bf16: two runs on the same inputs differ")
                 torch.cuda.synchronize()
                 worst[kernels["fwd"]] = max(worst[kernels["fwd"]], errs[0])
-                worst["pointwise_bwd_dx"] = max(worst["pointwise_bwd_dx"], errs[1])
+                worst[kernels["dx"]] = max(worst[kernels["dx"]], errs[1])
                 for name in (kernels["pass_a"], "pointwise_bwd_finalize"):
                     worst[name] = max(worst[name], *errs[2:])
                 print(f"K3 vs plain (B,C,Co)={(B, C, Co)} spatial {spatial} "
@@ -859,7 +976,7 @@ def k3_against_plain(device: torch.device) -> dict:
               f"{scratch} B written and read against {inputs} B of inputs "
               f"({scratch / inputs:.3f})")
         block = fused_against_cudnn(args, spatial, bias)
-        print(f"K3 block bn1→relu→conv1 {shape}, bf16 autocast: fused (batch stats + kernels) "
+        print(f"K3 block bn1→relu→conv1 {shape}, bf16 autocast: fused (K3's kernels) "
               f"fwd {block['fused_fwd']:.3f} ms, fwd+bwd {block['fused_fwd_bwd']:.3f} ms; "
               f"unfused cuDNN fwd {block['unfused_fwd']:.3f} ms, fwd+bwd "
               f"{block['unfused_fwd_bwd']:.3f} ms (median of 20 calls, CUDA events)")
@@ -876,6 +993,106 @@ def k3_against_plain(device: torch.device) -> dict:
     out.update({name: timed[name] for name in F32_ONLY})
     for name, entry in out.items():
         entry.update(max_abs_err=worst[name], library_ms=None)
+    return out
+
+
+def stats_finalize_plain(part, counts, eps):
+    """The finalize's plain version: the chunks' (mean, M2) [2, chunks, C]
+    over ``counts`` [chunks] elements merged in one sum (Chan's formula
+    over all chunks at once), then mean, var and inv."""
+    n = counts.sum()
+    w = counts[:, None]
+    mean = (w * part[0]).sum(0) / n
+    m2 = part[1].sum(0) + (w * (part[0] - mean).square()).sum(0)
+    var = m2 / n
+    return mean, var, PW.inv_std(var, eps)
+
+
+def k3_stats_against_plain(device: torch.device, card_line: str) -> dict:
+    """``pointwise_stats`` (partials + finalize, with bn1's running update)
+    at every K3_CASES shape, x float32 and bfloat16, each case run twice
+    from the same buffers and bitwise equal: mean and var against a float64
+    oracle, |Δ| ≤ 1e-5·|ref| (the mean's floor 1e-6·sqrt(var): a mean near
+    zero is known to its spread's scale); inv against 1 / sqrt(var + eps) of
+    the kernel's own var within 1 ulp; the running buffers within rtol 1e-6
+    (atol 1e-6·max|ref|: a buffer near zero) of ``update_running_stats``
+    from the kernel's statistics. Then timed at
+    K3_TIMED (the largest block's x in bfloat16, as the flagship feeds it)
+    against the plain path (``plain_stats``: the statistics as the fused op
+    took them before) and against ``torch.var_mean``, the one PyTorch call
+    computing mean and variance (after ``.float()`` for bfloat16 x)."""
+    eps, worst = 1e-5, 0.0
+    for i, (B, C, _, spatial, _, _) in enumerate(K3_CASES):
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x3 = k3_case(device, B, C, C, spatial, False, False, x_dtype, torch.bfloat16,
+                         seed=80 + i)[0]
+            start = running_buffers(C, device, seed=81 + i)
+            runs = []
+            for _ in range(2):
+                running = (start[0].clone(), start[1].clone(), start[2])
+                runs.append((*cuda_pointwise.pointwise_stats_cuda(x3, eps, running), *running[:2]))
+            mean, var, inv, rm, rv = runs[0]
+            torch.cuda.synchronize()
+            tag = f"(B,C,S)={(B, C, math.prod(spatial))} x {str(x_dtype)[6:]}"
+            check(all(torch.equal(a, b) for a, b in zip(*runs)),
+                  f"pointwise_stats {tag}: two runs on the same inputs differ")
+            ref_var, ref_mean = torch.var_mean(x3.double(), dim=(0, 2), correction=0)
+            err_m = (mean.double() - ref_mean).abs()
+            err_v = (var.double() - ref_var).abs()
+            check(bool((err_m <= 1e-5 * ref_mean.abs() + 1e-6 * ref_var.sqrt()).all()),
+                  f"pointwise_stats mean {tag}: max |Δ| {err_m.max().item():.3e}")
+            check(bool((err_v <= 1e-5 * ref_var).all()),
+                  f"pointwise_stats var {tag}: max |Δ|/var {(err_v / ref_var).max().item():.3e}")
+            want = 1.0 / torch.sqrt(var + eps)
+            ulps = (inv.view(torch.int32) - want.view(torch.int32)).abs().max().item()
+            check(ulps <= 1, f"pointwise_stats inv {tag}: {ulps} ulp from 1/sqrt(var + eps)")
+            plain = (start[0].clone(), start[1].clone(), start[2])
+            PW.update_running_stats(*plain, mean, var, B * math.prod(spatial))
+            for got, ref, what in ((rm, plain[0], "running_mean"), (rv, plain[1], "running_var")):
+                bound = 1e-6 * (ref.abs() + ref.abs().max())
+                check(bool(((got - ref).abs() <= bound).all()),
+                      f"pointwise_stats {what} {tag}: max |Δ| {(got - ref).abs().max().item():.3e}")
+            worst = max(worst, err_m.max().item(), err_v.max().item())
+            print(f"pointwise_stats vs float64 {tag}: mean max |Δ| {err_m.max().item():.3e}, var "
+                  f"max |Δ|/var {(err_v / ref_var).max().item():.3e}, inv {ulps} ulp; running "
+                  "buffers within 1e-6; two runs bitwise equal")
+            del x3, runs
+
+    out = {}
+    for i in K3_TIMED:
+        B, C, _, spatial, _, x_bf16 = K3_CASES[i]
+        x3 = k3_case(device, B, C, C, spatial, False, False,
+                     torch.bfloat16 if x_bf16 else torch.float32, torch.bfloat16, seed=90 + i)[0]
+        running = running_buffers(C, device, seed=91)
+        S = x3.shape[2]
+        per, chunks = cuda_pointwise.stats_chunks(B, C, S, x3.element_size())
+        part = cuda_pointwise.pointwise_stats_partials_cuda(x3)
+        counts = torch.tensor([(min(B, (k + 1) * per) - k * per) * S for k in range(chunks)],
+                              dtype=torch.float32, device=device)
+        xf = (lambda: x3) if x3.dtype == torch.float32 else x3.float
+        timed = {
+            "pointwise_stats": (lambda: cuda_pointwise.pointwise_stats_cuda(x3, eps, running),
+                                lambda: plain_stats(x3, eps, running)),
+            "pointwise_stats_finalize": (
+                lambda: cuda_pointwise.pointwise_stats_finalize_cuda(part, B, S, per, eps,
+                                                                     running),
+                lambda: stats_finalize_plain(part, counts, eps))}
+        bounds = k3_stats_bounds(x3)
+        library_ms = cuda_ms(lambda: torch.var_mean(xf(), dim=(0, 2), correction=0), calls=20,
+                             warmup=3)
+        shape = f"(B,C,S)={(B, C, S)} x {str(x3.dtype)[6:]}"
+        for name, (kernel_fn, plain_fn) in timed.items():
+            k_ms = cuda_ms(kernel_fn, calls=20, warmup=3)
+            p_ms = cuda_ms(plain_fn, calls=20, warmup=3)
+            entry = {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, **bounds[name],
+                     "library_ms": library_ms if name == "pointwise_stats" else None}
+            print(f"K3 {name} time {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                  f"{bounds[name]['bound_ms']:.4g} ms ({bounds[name]['bound_by']})"
+                  + (f", torch.var_mean {library_ms:.4f} ms" if name == "pointwise_stats" else "")
+                  + f" ({chunks} chunks; median of 20 calls, CUDA events) [{card_line}]")
+            if i == K3_TIMED[0]:
+                out[name] = entry
+        del x3, part
     return out
 
 
@@ -899,12 +1116,12 @@ def k3_times(args, shape: str, first: bool) -> dict:
             lambda: cuda_pointwise.pointwise_bwd_finalize_cuda(*parts),
             lambda: (parts[0].sum(0), parts[1].sum(0), parts[2].sum((0, 1)),
                      parts[3].sum((0, 1)))),
-        "pointwise_bwd_dx": (
+        kernels["dx"]: (
             lambda: cuda_pointwise.pointwise_bwd_dx_cuda(x3, g, b, m, inv, w, dy, dg, db),
             lambda: PW.pointwise_bwd_dx_plain(x3, g, b, m, inv, w, dy, dg, db).to(x3.dtype)),
     }
     if w.dtype == torch.float32:  # the float32 run times only its own kernels
-        timed = {kernels["fwd"]: timed[kernels["fwd"]], kernels["pass_a"]: timed[kernels["pass_a"]]}
+        timed = {kernels[f]: timed[kernels[f]] for f in ("fwd", "pass_a", "dx")}
     bounds = k3_bounds(x3, w, dy)
     partials_ms = cuda_ms(
         lambda: cuda_pointwise.pointwise_bwd_partials_cuda(x3, g, b, m, inv, w, dy),
@@ -927,8 +1144,9 @@ def k3_times(args, shape: str, first: bool) -> dict:
 
 def fused_against_cudnn(args, spatial, bias) -> dict:
     """The block's bn1 → relu → conv1 under bf16 autocast, as the fused op
-    (batch statistics, then K3) and as the unfused modules (cuDNN BatchNorm
-    and convolution), forward and forward + backward, on the same input."""
+    (``pointwise_stats``, then K3) and as the unfused modules (cuDNN
+    BatchNorm and convolution), forward and forward + backward, on the same
+    input; both update bn's running statistics."""
     x3, _, _, _, _, _, _, dy = args
     B, C, S = x3.shape
     Co = dy.shape[1]
@@ -943,7 +1161,8 @@ def fused_against_cudnn(args, spatial, bias) -> dict:
         with torch.autocast("cuda", dtype=torch.bfloat16):
             return PW.fused_bn_relu_pointwise(x, bn.weight, bn.bias,
                                               PW.conv1x1_matrix(conv.weight, False), conv.bias,
-                                              bn.eps, torch.bfloat16)[0]
+                                              bn.eps, torch.bfloat16,
+                                              (bn.running_mean, bn.running_var, bn.momentum))[0]
 
     def unfused():
         with torch.autocast("cuda", dtype=torch.bfloat16):
@@ -1346,7 +1565,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     results = {"poe_subsets_f32": k1_against_plain(device),
                "poe_subsets_bwd_f32": k1_bwd_against_plain(device),
-               **k2_against_plain(device, card_line), **k3_against_plain(device)}
+               **k2_against_plain(device, card_line), **k3_against_plain(device),
+               **k3_stats_against_plain(device, card_line)}
     for name in TENSOR_CORE_KERNELS:  # K2's entries are named by the function, K3's by kernel
         results[name if name in results else name.removesuffix("_tc")]["sass"] = sass[name]
 
@@ -1377,7 +1597,7 @@ def main() -> int:
                                  lr_warmup_steps=TRAIN_WARMUP_STEPS)
     runs = {}
     for path, cfg, launched, per_step in (
-            ("train", train_cfg, K12, K2_PER_STEP),
+            ("train", train_cfg, K12, {**K2_PER_STEP, **dict.fromkeys(K3, 0)}),
             ("train_fused_pointwise", train_cfg.replace(fused_pointwise=True), K12 + K3_BF16,
              {**K2_PER_STEP, **dict.fromkeys(K3_BF16, K3_CALLS_PER_STEP),
               **dict.fromkeys(F32_ONLY, 0)})):

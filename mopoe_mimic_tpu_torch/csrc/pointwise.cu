@@ -20,7 +20,10 @@
 //           dgamma = sum_n dh * xhat,  dbeta = sum_n dh               (float32)
 //   pass B: dx = gamma * inv * (dh - dbeta / R - xhat * dgamma / R)   (x's dtype)
 //
-// xhat and h are recomputed from x in every kernel and never stored.
+// xhat and h are recomputed from x in every kernel and never stored. The
+// batch statistics mean and inv, and bn1's running update, come from
+// pointwise_stats (partials per chunk of rows) and pointwise_stats_finalize
+// (section "pointwise_stats" below), for both families.
 //
 // What bounds it on this card: the products are 2 * R * C * Co operations
 // over R * (C + Co) elements, 64-320 operations per element read, so in
@@ -30,12 +33,12 @@
 //
 // Two families of kernels:
 //
-//  * bfloat16 W (the bf16 autocast of training): pointwise_fwd_tc and
-//    pointwise_bwd_reduce_tc (pass A) run the products on tensor cores
-//    (mma.sync from ldmatrix, float32 sums) and stream x and dy with 16-byte
-//    cp.async copies, three units of 64 rows x 64 channels in flight; the
-//    section "bfloat16 on tensor cores" below says how. Pass B
-//    (pointwise_bwd_dx) still runs on the CUDA cores.
+//  * bfloat16 W (the bf16 autocast of training): pointwise_fwd_tc,
+//    pointwise_bwd_reduce_tc (pass A) and pointwise_bwd_dx_tc (pass B) run
+//    the products on tensor cores (mma.sync from ldmatrix, float32 sums)
+//    and stream x and dy with 16-byte cp.async copies, three units of 64
+//    rows x 64 channels in flight; the section "bfloat16 on tensor cores"
+//    below says how.
 //  * float32 W: pointwise_fwd, pointwise_bwd_reduce and pointwise_bwd_dx
 //    run the products as float32 FMAs on the CUDA cores (TF32 would change
 //    the numbers), fed from shared memory:
@@ -71,7 +74,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <mutex>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -215,10 +219,10 @@ pointwise_fwd_kernel(const TX* __restrict__ x, Norm p, const float* __restrict__
 // backward pass B: dx
 // ---------------------------------------------------------------------------
 
-template <typename TX, typename TW>
+template <typename TX>
 __global__ void __launch_bounds__(kThreads)
-pointwise_bwd_dx_kernel(const TX* __restrict__ x, Norm p, const TW* __restrict__ W,
-                        const TW* __restrict__ dy, const float* __restrict__ dg,
+pointwise_bwd_dx_kernel(const TX* __restrict__ x, Norm p, const float* __restrict__ W,
+                        const float* __restrict__ dy, const float* __restrict__ dg,
                         const float* __restrict__ db, TX* __restrict__ dx, int R, int C, int Co,
                         int S) {
   __shared__ float ws[FK * (FP + 1)];  // ws[k][pp] = W[c0 + pp, o0 + k]
@@ -238,12 +242,12 @@ pointwise_bwd_dx_kernel(const TX* __restrict__ x, Norm p, const TW* __restrict__
     __syncthreads();
     for (int idx = tid; idx < FK * FP; idx += kThreads) {
       const int k = idx / FP, pp = idx - k * FP, c = c0 + pp, o = o0 + k;
-      ws[k * (FP + 1) + pp] = (c < C && o < Co) ? to_f<TW>(W[(long long)c * Co + o]) : 0.0f;
+      ws[k * (FP + 1) + pp] = (c < C && o < Co) ? W[(long long)c * Co + o] : 0.0f;
     }
     for (int k = tid / FN; k < FK; k += kThreads / FN) {
       const int o = o0 + k;
       ds[k * (FN + 1) + q] =
-          (o < Co && dyrow >= 0) ? to_f<TW>(dy[dyrow + (long long)o * S]) : 0.0f;
+          (o < Co && dyrow >= 0) ? dy[dyrow + (long long)o * S] : 0.0f;
     }
     __syncthreads();
     tile_fma<4, 8, FK>(ws, FP + 1, 1, ds, FN + 1, 1, ty, tx, acc);
@@ -553,17 +557,18 @@ __device__ __forceinline__ void flat_cr(int e, int lgP, int& c, int& r) {
   r = (j << lgP) + (e & ((1 << lgP) - 1));
 }
 
-// Channels k0 .. k0 + 63, rows n0 .. n0 + 63 of g [B, K, S] into dst (ld:
-// its row stride for kModeS / kModeG), zero outside the tensor. kModeS and
-// kModeB: 16-byte cp.async pieces (the caller commits the group); kModeG:
-// loads through registers.
-template <typename T, int MODE>
+// Channels k0 .. k0 + 63, rows n0 .. n0 + NR - 1 of g [B, K, S] into dst
+// (ld: its row stride for kModeS / kModeG), zero outside the tensor. kModeS
+// and kModeB: 16-byte cp.async pieces (the caller commits the group);
+// kModeG: loads through registers. A unit of NR rows lies in memory as one
+// of 64 rows does (kModeS: S % NR == 0; kModeB: NR % S == 0).
+template <typename T, int MODE, int NR = TC_T>
 __device__ __forceinline__ void stage_unit(T* dst, int ld, const T* __restrict__ g, const Unit& u,
                                            int n0, int k0) {
   constexpr int VE = 16 / sizeof(T);  // elements a piece
   if (MODE == kModeS) {
     const int b = n0 / u.S, s0 = n0 - b * u.S;
-    constexpr int PPC = TC_T / VE;  // pieces a channel
+    constexpr int PPC = NR / VE;  // pieces a channel
 #pragma unroll
     for (int i = 0; i < TC_T * PPC / TC_THREADS; ++i) {
       const int pi = threadIdx.x + i * TC_THREADS, c = pi / PPC, e = (pi % PPC) * VE;
@@ -574,7 +579,7 @@ __device__ __forceinline__ void stage_unit(T* dst, int ld, const T* __restrict__
   } else if (MODE == kModeB) {
     const int b0 = n0 >> u.lgP, run = TC_T << u.lgP;  // elements of one b's run
 #pragma unroll
-    for (int i = 0; i < TC_T * TC_T / VE / TC_THREADS; ++i) {
+    for (int i = 0; i < TC_T * NR / VE / TC_THREADS; ++i) {
       const int f = (threadIdx.x + i * TC_THREADS) * VE;
       const int j = f >> (6 + u.lgP), rem = f - j * run, b = b0 + j;
       const bool ok = b < u.B && k0 + (rem >> u.lgP) < u.K;
@@ -582,8 +587,8 @@ __device__ __forceinline__ void stage_unit(T* dst, int ld, const T* __restrict__
       cp_async16(dst + f, src, ok);
     }
   } else {
-    for (int e = threadIdx.x; e < TC_T * TC_T; e += TC_THREADS) {
-      const int c = e / TC_T, r = e % TC_T, n = n0 + r;
+    for (int e = threadIdx.x; e < TC_T * NR; e += TC_THREADS) {
+      const int c = e / NR, r = e % NR, n = n0 + r;
       T v = from_f<T>(0.0f);
       if (n < u.R && k0 + c < u.K) {
         const int b = n / u.S;
@@ -594,23 +599,24 @@ __device__ __forceinline__ void stage_unit(T* dst, int ld, const T* __restrict__
   }
 }
 
-// W[k0 + c, o0 : o0 + 64] for c < rows → ws[c][o], zero outside W: 16-byte
-// cp.async pieces (joining the caller's next commit group) where wvec (Co a
-// multiple of 8, W 16-byte aligned: a piece is in W whole or not at all),
-// else element by element.
-__device__ __forceinline__ void stage_w(bf16* ws, const bf16* __restrict__ W, int rows, int k0,
-                                        int C, int Co, int o0, bool wvec) {
+// W[k0 + c, o0 : o0 + width] for c < rows → ws[c][o] (row stride ld; width
+// a multiple of 8), zero outside W: 16-byte cp.async pieces (joining the
+// caller's next commit group) where wvec (Co a multiple of 8, W 16-byte
+// aligned: a piece is in W whole or not at all), else element by element.
+__device__ __forceinline__ void stage_w(bf16* ws, int ld, const bf16* __restrict__ W, int rows,
+                                        int k0, int C, int Co, int o0, int width, bool wvec) {
   if (wvec) {
-    for (int pi = threadIdx.x; pi < rows * (TC_T / 8); pi += TC_THREADS) {
-      const int c = pi / (TC_T / 8), o = (pi % (TC_T / 8)) * 8;
+    const int per_row = width / 8;
+    for (int pi = threadIdx.x; pi < rows * per_row; pi += TC_THREADS) {
+      const int c = pi / per_row, o = (pi % per_row) * 8;
       const bool ok = k0 + c < C && o0 + o < Co;
-      cp_async16(ws + c * TC_LD + o, ok ? W + (long long)(k0 + c) * Co + o0 + o : W, ok);
+      cp_async16(ws + c * ld + o, ok ? W + (long long)(k0 + c) * Co + o0 + o : W, ok);
     }
   } else {
-    for (int e = threadIdx.x; e < rows * TC_T; e += TC_THREADS) {
-      const int c = e / TC_T, o = e % TC_T;
-      ws[c * TC_LD + o] = (k0 + c < C && o0 + o < Co) ? W[(long long)(k0 + c) * Co + o0 + o]
-                                                      : from_f<bf16>(0.0f);
+    for (int e = threadIdx.x; e < rows * width; e += TC_THREADS) {
+      const int c = e / width, o = e % width;
+      ws[c * ld + o] = (k0 + c < C && o0 + o < Co) ? W[(long long)(k0 + c) * Co + o0 + o]
+                                                   : from_f<bf16>(0.0f);
     }
   }
 }
@@ -720,11 +726,12 @@ __device__ __forceinline__ void convert_h(bf16* hs, float* xm, const TX* xs, int
   }
 }
 
-// A kModeB dy unit, flat → ds[o][r] (already zero past Co and B)
+// A kModeB dy unit of NR rows, flat → ds[o][r] (already zero past Co and B)
+template <int NR = TC_T>
 __device__ __forceinline__ void permute_flat(bf16* ds, const bf16* flat, int lgP) {
   const unsigned short* src = reinterpret_cast<const unsigned short*>(flat);
   unsigned short* dst = reinterpret_cast<unsigned short*>(ds);
-  for (int e = threadIdx.x; e < TC_T * TC_T; e += TC_THREADS) {
+  for (int e = threadIdx.x; e < TC_T * NR; e += TC_THREADS) {
     int c, r;
     flat_cr(e, lgP, c, r);
     dst[c * TC_LD + r] = src[e];
@@ -785,7 +792,7 @@ pointwise_fwd_tc(const TX* __restrict__ x, Norm p, const bf16* __restrict__ W,
   };
   // W[:, o0 : o0 + 64] as ws[c][o], zero past C and Co (with unit 0's
   // group); the statistics; cb
-  stage_w(ws, W, CP, 0, C, Co, o0, wvec);
+  stage_w(ws, TC_LD, W, CP, 0, C, Co, o0, TC_T, wvec);
   for (int i = 0; i < TC_STAGES - 1; ++i) fetch(i);
   for (int c = tid; c < CP; c += TC_THREADS) {
     norms[c] = c < C ? ChanNorm{p.mean[c], p.inv[c], p.gamma[c], p.beta[c]}
@@ -942,7 +949,7 @@ pointwise_bwd_reduce_tc(const TX* __restrict__ x, Norm p, const bf16* __restrict
     }
     cp_async_commit();
   };
-  stage_w(ws, W, TC_T, c0, C, Co, o0, wvec);  // with unit 0's group
+  stage_w(ws, TC_LD, W, TC_T, c0, C, Co, o0, TC_T, wvec);  // with unit 0's group
   for (int i = 0; i < TC_STAGES - 1; ++i) fetch(i);
   if (tid < TC_T) {
     const int c = c0 + tid;
@@ -1095,6 +1102,327 @@ pointwise_bwd_reduce_tc(const TX* __restrict__ x, Norm p, const bf16* __restrict
 }
 
 // ---------------------------------------------------------------------------
+// pointwise_bwd_dx_tc: pass B, dx = gamma * inv * (dh - dbeta / R - xhat * dgamma / R)
+// ---------------------------------------------------------------------------
+//
+// dh[c, n] = sum_o W[c, o] dy[o, n]: the forward's product with W's other
+// axis. A block owns 64 channels (blockIdx.y) and every gridDim.x-th row
+// tile of NR rows from blockIdx.x; NR is 64, 32 or 16 (the wrapper's
+// dx_tc_rows, a function of the shape: smaller where 64-row tiles would
+// leave the card without a wave of blocks). The block stages W[c0 : c0 + 64,
+// :] once, as the A operand (ldmatrix from rows of Co), and streams dy in
+// units of 64 outputs x NR rows, three in flight, each warp summing dh of
+// its 16 channels x NR rows over the whole of Co in its accumulators (B =
+// dy through ldmatrix.trans): no split over Co, no atomics. The row tile's
+// x unit arrives with its last output chunk; the epilogue reads x from it,
+// recomputes xhat and the mask h > 0 (__fmul_rn / __fadd_rn, as the other
+// kernels), writes dx over x in place, and the tile goes out as 16-byte
+// stores in x's layout and dtype. The x tiles in flight (xslots): a row
+// tile's x lives from its last chunk's fetch to its epilogue, two units
+// later, so 3 slots with one output chunk, 2 with two, 1 with more.
+
+// The staged tile src (channels k0 .., rows n0 .. n0 + NR - 1, laid out as
+// stage_unit puts it) out to g [B, K, S], inside the tensor only: 16-byte
+// pieces for kModeS and kModeB, element by element for kModeG
+template <typename T, int MODE, int NR>
+__device__ __forceinline__ void store_unit(T* __restrict__ g, const T* src, int ld, const Unit& u,
+                                           int n0, int k0) {
+  constexpr int VE = 16 / sizeof(T);
+  if (MODE == kModeS) {
+    const int b = n0 / u.S, s0 = n0 - b * u.S;
+    constexpr int PPC = NR / VE;
+#pragma unroll
+    for (int i = 0; i < TC_T * PPC / TC_THREADS; ++i) {
+      const int pi = threadIdx.x + i * TC_THREADS, c = pi / PPC, e = (pi % PPC) * VE;
+      if (k0 + c < u.K) {
+        *reinterpret_cast<uint4*>(g + ((long long)b * u.K + k0 + c) * u.S + s0 + e) =
+            *reinterpret_cast<const uint4*>(src + c * ld + e);
+      }
+    }
+  } else if (MODE == kModeB) {
+    const int b0 = n0 >> u.lgP, run = TC_T << u.lgP;
+#pragma unroll
+    for (int i = 0; i < TC_T * NR / VE / TC_THREADS; ++i) {
+      const int f = (threadIdx.x + i * TC_THREADS) * VE;
+      const int j = f >> (6 + u.lgP), rem = f - j * run, b = b0 + j;
+      if (b < u.B && k0 + (rem >> u.lgP) < u.K) {
+        *reinterpret_cast<uint4*>(g + ((long long)b * u.K + k0) * u.S + rem) =
+            *reinterpret_cast<const uint4*>(src + f);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < TC_T * NR; e += TC_THREADS) {
+      const int c = e / NR, r = e % NR, n = n0 + r;
+      if (n < u.R && k0 + c < u.K) {
+        const int b = n / u.S;
+        g[((long long)b * u.K + k0 + c) * u.S + (n - b * u.S)] = src[c * ld + r];
+      }
+    }
+  }
+}
+
+template <typename TX>
+struct DxSmem {
+  // W's slice [64][CoP + 8]: rows of 2 (CoP + 8) bytes, so that the eight
+  // rows of an ldmatrix fall in distinct banks
+  static __host__ __device__ int wld(int Co) { return (Co + TC_T - 1) / TC_T * TC_T + 8; }
+  static __host__ __device__ int xslots(int Co) {
+    const int chunks = (Co + TC_T - 1) / TC_T;
+    return chunks >= TC_STAGES ? 1 : TC_STAGES + 1 - chunks;
+  }
+  static size_t bytes(int Co) {
+    return sizeof(TX) * xslots(Co) * TC_T * FwdSmem<TX>::ldx() +
+           sizeof(bf16) * ((TC_STAGES + 1) * TC_T * TC_LD + TC_T * wld(Co));
+  }
+};
+
+template <typename TX, int MODE, int NR>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+pointwise_bwd_dx_tc(const TX* __restrict__ x, Norm p, const bf16* __restrict__ W,
+                    const bf16* __restrict__ dy, const float* __restrict__ dg,
+                    const float* __restrict__ db, TX* __restrict__ dx, int B, int C, int Co,
+                    int S, int lgP, bool wvec) {
+  constexpr int LDX = FwdSmem<TX>::ldx(), NT = NR / 8;  // NT: 8-row mma tiles a unit
+  const int chunks = (Co + TC_T - 1) / TC_T, WLD = DxSmem<TX>::wld(Co);
+  const int xslots = DxSmem<TX>::xslots(Co);
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  TX* xs = reinterpret_cast<TX*>(tc_smem);  // [xslots][64][LDX] or flat
+  bf16* dys = reinterpret_cast<bf16*>(xs + xslots * TC_T * LDX);  // [STAGES][64][TC_LD] or flat
+  bf16* dsb = dys + TC_STAGES * TC_T * TC_LD;  // kModeB's permuted dy
+  bf16* ws = dsb + TC_T * TC_LD;  // [64][WLD]: W[c0 + c, o]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, q = lane / 4, s = lane % 4;
+  const int c0 = blockIdx.y * TC_T, R = B * S;
+  const Unit ux{B, R, C, S, lgP}, uy{B, R, Co, S, lgP};
+  const int tiles = (R + NR - 1) / NR;
+  const int my_tiles = tiles > (int)blockIdx.x ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int units = my_tiles * chunks;
+
+  auto fetch = [&](int i) {
+    if (i < units) {
+      const int t = i / chunks, kc = i % chunks, n0 = (blockIdx.x + t * gridDim.x) * NR;
+      stage_unit<bf16, MODE, NR>(dys + (i % TC_STAGES) * TC_T * TC_LD, TC_LD, dy, uy, n0,
+                                 kc * TC_T);
+      if (kc == chunks - 1)
+        stage_unit<TX, MODE, NR>(xs + (t % xslots) * TC_T * LDX, LDX, x, ux, n0, c0);
+    }
+    cp_async_commit();
+  };
+  stage_w(ws, WLD, W, TC_T, c0, C, Co, 0, WLD - 8, wvec);  // with unit 0's group
+  for (int i = 0; i < TC_STAGES - 1; ++i) fetch(i);
+
+  // the lane's channels 16 warp + q (+8): statistics, gamma * inv, dbeta / R
+  // and dgamma (zero past C)
+  const float rows = (float)R;
+  float mean[2], inv[2], gam[2], bet[2], ginv[2], dbr[2], dgc[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int c = c0 + 16 * warp + q + 8 * hi;
+    const bool ok = c < C;
+    mean[hi] = ok ? __ldg(p.mean + c) : 0.0f;
+    inv[hi] = ok ? __ldg(p.inv + c) : 0.0f;
+    gam[hi] = ok ? __ldg(p.gamma + c) : 0.0f;
+    bet[hi] = ok ? __ldg(p.beta + c) : 0.0f;
+    ginv[hi] = __fmul_rn(gam[hi], inv[hi]);
+    dbr[hi] = __fdiv_rn(ok ? __ldg(db + c) : 0.0f, rows);
+    dgc[hi] = ok ? __ldg(dg + c) : 0.0f;
+  }
+
+  // dh of channels 16 warp + q (+8), rows 8n + 2s (+1)
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  for (int i = 0; i < units; ++i) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();  // unit i is in place; unit i - 1's readers are done
+    fetch(i + TC_STAGES - 1);
+    const int t = i / chunks, kc = i % chunks;
+    const bf16* ds = dys + (i % TC_STAGES) * TC_T * TC_LD;
+    if (MODE == kModeB) {
+      permute_flat<NR>(dsb, ds, lgP);
+      ds = dsb;
+      __syncthreads();
+    }
+
+    // acc += W[:, chunk kc] dy: A = W [c][o], B (k = output, n = row) from
+    // ds [o][r] through .trans
+    const bf16* wk = ws + kc * TC_T;
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+      uint32_t a[4];
+      ldsm_x4(a, wk + (16 * warp + (lane & 15)) * WLD + kt * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, ds + (kt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * TC_LD + np * 16 +
+                         (lane >> 4) * 8);
+        mma_bf16(acc[2 * np], a, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    if (kc != chunks - 1) continue;
+
+    // the tile's dx over its x, in place, then out
+    TX* xu = xs + (t % xslots) * TC_T * LDX;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int hi = k >> 1, at = staged_at<MODE>(16 * warp + q + 8 * hi, 8 * n + 2 * s + (k & 1),
+                                                    lgP, LDX);
+        const float xh = __fmul_rn(__fsub_rn(to_f<TX>(xu[at]), mean[hi]), inv[hi]);
+        const float d = norm_pre(xh, gam[hi], bet[hi]) > 0.0f ? acc[n][k] : 0.0f;
+        const float v = __fmul_rn(
+            ginv[hi], __fsub_rn(__fsub_rn(d, dbr[hi]), __fdiv_rn(__fmul_rn(xh, dgc[hi]), rows)));
+        xu[at] = from_f<TX>(v);
+        acc[n][k] = 0.0f;
+      }
+    __syncthreads();
+    store_unit<TX, MODE, NR>(dx, xu, LDX, ux, (blockIdx.x + t * gridDim.x) * NR, c0);
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// pointwise_stats: the fused op's batch statistics and bn1's running update
+// ---------------------------------------------------------------------------
+//
+// For each channel of x [B, C, S] (float32 or bf16), over its n = B * S
+// elements: mean, the biased variance var, inv = 1 / sqrt(var + eps) (each
+// operation correctly rounded, as ops/pointwise.inv_std; never rsqrt) and,
+// where asked, nn.BatchNorm's running update. The JAX package takes these
+// statistics with XLA outside its Pallas kernel
+// (mopoe_mimic_tpu/ops/pallas_pointwise.py:285-288); the port's plain path
+// is batch_stats, inv_std and update_running_stats (ops/pointwise.py), some
+// 14 device ops and several passes over x. Bound by bytes: x is read once,
+// in its own dtype.
+//
+// pointwise_stats_kernel: one block per (chunk of whole b, group of
+// channels); TPC lanes (a power of two up to 32, by S) share a channel and
+// read, in each b of the chunk, its run of S elements in groups of G (16
+// bytes where S % G == 0). Each lane keeps a Welford state over batches
+// (one b's elements a batch): with the running mean as the pivot of the
+// batch's sums s1 = sum (x - mean), s2 = sum (x - mean)^2, the batch joins
+// as mean += s1 / n', M2 += s2 - s1^2 / n' (Chan's formula for a batch);
+// the first element seen is the first pivot. The TPC lanes are merged by
+// Chan's formula in a fixed order (xor shuffles) into the chunk's (mean,
+// M2) per channel. pointwise_stats_finalize_kernel: one warp per channel
+// merges the chunks in a fixed order (lane l takes chunks l, l + 32, ...,
+// then xor shuffles), then writes mean, var = M2 / n and inv, and updates
+// the running buffers. No atomics: two runs are bitwise equal.
+
+#define ST_THREADS 256
+
+// (n, mean, m2) ← (n, mean, m2) merged with (nb, mb, m2b), Chan's formula
+__device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2, float nb, float mb,
+                                           float m2b) {
+  if (nb == 0.0f) return;
+  if (n == 0.0f) {
+    n = nb, mean = mb, m2 = m2b;
+    return;
+  }
+  const float nn = n + nb, d = mb - mean, f = nb / nn;
+  mean = mean + d * f;
+  m2 = m2 + m2b + d * d * n * f;
+  n = nn;
+}
+
+// merge the states of the lanes l ^ off, off < width, in a fixed order
+__device__ __forceinline__ void chan_merge_lanes(float& n, float& mean, float& m2, int width) {
+  for (int off = 1; off < width; off <<= 1) {
+    const float nb = __shfl_xor_sync(0xffffffffu, n, off);
+    const float mb = __shfl_xor_sync(0xffffffffu, mean, off);
+    const float m2b = __shfl_xor_sync(0xffffffffu, m2, off);
+    chan_merge(n, mean, m2, nb, mb, m2b);
+  }
+}
+
+template <typename TX, int G>
+__global__ void __launch_bounds__(ST_THREADS)
+pointwise_stats_kernel(const TX* __restrict__ x, float* __restrict__ part_mean,
+                       float* __restrict__ part_m2, int B, int C, int S, int tpc,
+                       int b_per_chunk, bool vec) {
+  const int tid = threadIdx.x, sub = tid % tpc;
+  const int c = blockIdx.y * (ST_THREADS / tpc) + tid / tpc;
+  const int b_begin = blockIdx.x * b_per_chunk, b_end = min(B, b_begin + b_per_chunk);
+  const int groups = S / G;  // G elements a group
+  int n = 0;
+  float mean = 0.0f, m2 = 0.0f;
+  if (c < C) {
+    for (int b = b_begin; b < b_end; ++b) {
+      const TX* run = x + ((long long)b * C + c) * S;
+      float s1 = 0.0f, s2 = 0.0f;
+      int k = 0;
+#pragma unroll 4
+      for (int gi = sub; gi < groups; gi += tpc) {
+        float v[G];
+        if (G > 1 && vec) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(run + gi * G);
+          const TX* e = reinterpret_cast<const TX*>(&raw);
+#pragma unroll
+          for (int j = 0; j < G; ++j) v[j] = to_f<TX>(e[j]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < G; ++j) v[j] = to_f<TX>(run[gi * G + j]);
+        }
+        if (n == 0 && k == 0) mean = v[0];  // the first pivot
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const float d = v[j] - mean;
+          s1 += d;
+          s2 = fmaf(d, d, s2);
+        }
+        k += G;
+      }
+      if (k > 0) {
+        n += k;
+        const float r = __frcp_rn((float)n);
+        mean = mean + s1 * r;
+        m2 = m2 + (s2 - s1 * s1 * r);
+      }
+    }
+  }
+  float nf = (float)n;
+  chan_merge_lanes(nf, mean, m2, tpc);
+  if (c < C && sub == 0) {
+    part_mean[(long long)blockIdx.x * C + c] = mean;
+    part_m2[(long long)blockIdx.x * C + c] = m2;
+  }
+}
+
+// One warp per channel: the chunks' (mean, M2), chunk k over
+// (min(B, (k + 1) b_per_chunk) - k b_per_chunk) * S elements, merged in a
+// fixed order; then the statistics and, where running_mean is given, the
+// running update (m: momentum, unbias: n / (n - 1))
+__global__ void __launch_bounds__(ST_THREADS)
+pointwise_stats_finalize_kernel(const float* __restrict__ part_mean,
+                                const float* __restrict__ part_m2, float* __restrict__ mean_out,
+                                float* __restrict__ var_out, float* __restrict__ inv_out,
+                                float* __restrict__ running_mean, float* __restrict__ running_var,
+                                int B, int C, int S, int b_per_chunk, int chunks, float eps,
+                                float m, float one_minus_m, float unbias) {
+  const int lane = threadIdx.x % 32, c = blockIdx.x * (ST_THREADS / 32) + threadIdx.x / 32;
+  if (c >= C) return;  // whole warps
+  float n = 0.0f, mean = 0.0f, m2 = 0.0f;
+  for (int k = lane; k < chunks; k += 32) {
+    const int bs = min(B, (k + 1) * b_per_chunk) - k * b_per_chunk;
+    chan_merge(n, mean, m2, (float)bs * (float)S, part_mean[(long long)k * C + c],
+               part_m2[(long long)k * C + c]);
+  }
+  chan_merge_lanes(n, mean, m2, 32);
+  if (lane != 0) return;
+  const float var = fmaxf(0.0f, __fdiv_rn(m2, n));  // M2 can round below 0
+  mean_out[c] = mean;
+  var_out[c] = var;
+  inv_out[c] = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+  if (running_mean != nullptr) {  // as mul_(1 - m).add_(stat, alpha=m) rounds on the card
+    running_mean[c] = __fmaf_rn(m, mean, __fmul_rn(running_mean[c], one_minus_m));
+    running_var[c] = __fmaf_rn(m, __fmul_rn(var, unbias), __fmul_rn(running_var[c], one_minus_m));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1102,50 +1430,6 @@ constexpr size_t kReduceSmem = sizeof(float) * 4 * AT * AL;  // 66,560 bytes
 
 bool bad_shape(int B, int C, int Co, int S) {
   return B < 1 || S < 1 || C < 1 || C > kMaxC || Co < 1 || Co > kMaxC;
-}
-
-// Per kernel instantiation K and device: the dynamic shared memory limit,
-// raised by cudaFuncSetAttribute only when a launch needs more than it was
-// raised to before, and the blocks of K the card holds at once (blocks an
-// SM holds at `smem` bytes times the SMs), asked of the runtime once per
-// size. A launch of a size seen before makes no runtime call but
-// cudaGetDevice.
-template <auto K>
-cudaError_t prepare(size_t smem, int threads, int* wave) {
-  struct Seen {
-    int dev;
-    size_t smem;
-    int wave;
-  };
-  constexpr int kDevices = 64, kSizes = 64;
-  static std::mutex mu;
-  static Seen seen[kSizes];
-  static int n_seen = 0;
-  static size_t allowed[kDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < n_seen; ++i) {
-    if (seen[i].dev == dev && seen[i].smem == smem) {
-      *wave = seen[i].wave;
-      return cudaSuccess;
-    }
-  }
-  if (smem > allowed[dev]) {
-    err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    allowed[dev] = smem;
-  }
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K, threads, smem);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *wave = per_sm * sms;
-  if (n_seen < kSizes) seen[n_seen++] = Seen{dev, smem, *wave};
-  return cudaSuccess;
 }
 
 template <typename TX>
@@ -1158,13 +1442,13 @@ int launch_fwd(const void* x, Norm p, const void* W, const float* cb, void* y, i
   return (int)cudaGetLastError();
 }
 
-template <typename TX, typename TW>
+template <typename TX>
 int launch_dx(const void* x, Norm p, const void* W, const void* dy, const float* dg,
               const float* db, void* dx, int B, int C, int Co, int S, cudaStream_t stream) {
   const int R = B * S;
   const dim3 grid((R + FN - 1) / FN, (C + FP - 1) / FP);
-  pointwise_bwd_dx_kernel<TX, TW><<<grid, kThreads, 0, stream>>>(
-      (const TX*)x, p, (const TW*)W, (const TW*)dy, dg, db, (TX*)dx, R, C, Co, S);
+  pointwise_bwd_dx_kernel<TX><<<grid, kThreads, 0, stream>>>(
+      (const TX*)x, p, (const float*)W, (const float*)dy, dg, db, (TX*)dx, R, C, Co, S);
   return (int)cudaGetLastError();
 }
 
@@ -1184,15 +1468,17 @@ int launch_reduce(const void* x, Norm p, const void* W, const void* dy, float* p
   return (int)cudaGetLastError();
 }
 
-// The layout mode of a tensor-core launch (see kModeS): kModeS where each
-// channel's rows run along s in whole 16-byte pieces, kModeB where whole b
-// fill a unit and every (b, 64-channel) run of each tensor starts on a
-// 16-byte boundary, else kModeG. lgP: log2 of the run length.
-int tc_mode(const void* x, size_t x_bytes, const void* other, int C, int Co, int S, int* lgP) {
+// The layout mode of a tensor-core launch with units of `rows` rows (see
+// kModeS): kModeS where each channel's rows run along s in whole 16-byte
+// pieces, kModeB where whole b fill a unit and every (b, 64-channel) run of
+// each tensor starts on a 16-byte boundary, else kModeG. lgP: log2 of the
+// run length.
+int tc_mode(const void* x, size_t x_bytes, const void* other, int C, int Co, int S, int* lgP,
+            int rows = TC_T) {
   *lgP = 6;
   if ((uintptr_t)x % 16 != 0 || (uintptr_t)other % 16 != 0) return kModeG;
-  if (S % TC_T == 0) return kModeS;
-  if (TC_T % S != 0 || ((long long)C * S * x_bytes) % 16 != 0 || ((long long)Co * S * 2) % 16 != 0)
+  if (S % rows == 0) return kModeS;
+  if (rows % S != 0 || ((long long)C * S * x_bytes) % 16 != 0 || ((long long)Co * S * 2) % 16 != 0)
     return kModeG;
   *lgP = 0;
   while ((1 << *lgP) < S) ++*lgP;
@@ -1265,13 +1551,89 @@ int launch_reduce_tc(const void* x, Norm p, const void* W, const void* dy, float
   }
 }
 
+template <typename TX, int MODE, int NR>
+int launch_dx_tc_mode(const void* x, Norm p, const void* W, const void* dy, const float* dg,
+                      const float* db, void* dx, int B, int C, int Co, int S, int lgP,
+                      cudaStream_t stream) {
+  const size_t smem = DxSmem<TX>::bytes(Co);
+  int wave = 0;
+  const cudaError_t err = prepare<pointwise_bwd_dx_tc<TX, MODE, NR>>(smem, TC_THREADS, &wave);
+  if (err != cudaSuccess) return (int)err;
+  const int c_tiles = (C + TC_T - 1) / TC_T, tiles = (B * S + NR - 1) / NR;
+  const int per_c = wave / c_tiles < 1 ? 1 : wave / c_tiles;
+  const dim3 grid(tiles < per_c ? tiles : per_c, c_tiles);
+  pointwise_bwd_dx_tc<TX, MODE, NR><<<grid, TC_THREADS, smem, stream>>>(
+      (const TX*)x, p, (const bf16*)W, (const bf16*)dy, dg, db, (TX*)dx, B, C, Co, S, lgP,
+      w_vec(W, Co));
+  return (int)cudaGetLastError();
+}
+
+template <typename TX, int NR>
+int launch_dx_tc_rows(const void* x, Norm p, const void* W, const void* dy, const float* dg,
+                      const float* db, void* dx, int B, int C, int Co, int S,
+                      cudaStream_t stream) {
+  int lgP = 6;
+  int mode = tc_mode(x, sizeof(TX), dy, C, Co, S, &lgP, NR);
+  if ((uintptr_t)dx % 16 != 0) mode = kModeG;  // dx goes out in x's layout
+  switch (mode) {
+    case kModeS:
+      return launch_dx_tc_mode<TX, kModeS, NR>(x, p, W, dy, dg, db, dx, B, C, Co, S, lgP, stream);
+    case kModeB:
+      return launch_dx_tc_mode<TX, kModeB, NR>(x, p, W, dy, dg, db, dx, B, C, Co, S, lgP, stream);
+    default:
+      return launch_dx_tc_mode<TX, kModeG, NR>(x, p, W, dy, dg, db, dx, B, C, Co, S, lgP, stream);
+  }
+}
+
+template <typename TX>
+int launch_dx_tc(const void* x, Norm p, const void* W, const void* dy, const float* dg,
+                 const float* db, void* dx, int B, int C, int Co, int S, int rows,
+                 cudaStream_t stream) {
+  switch (rows) {
+    case 64:
+      return launch_dx_tc_rows<TX, 64>(x, p, W, dy, dg, db, dx, B, C, Co, S, stream);
+    case 32:
+      return launch_dx_tc_rows<TX, 32>(x, p, W, dy, dg, db, dx, B, C, Co, S, stream);
+    case 16:
+      return launch_dx_tc_rows<TX, 16>(x, p, W, dy, dg, db, dx, B, C, Co, S, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The lanes that share a channel in pointwise_stats_kernel (a power of two,
+// at most 32 and at most the channel's groups of G elements in one b)
+int stats_lanes(int S, int G) {
+  int tpc = 1;
+  while (tpc < 32 && 2 * tpc <= S / G) tpc *= 2;
+  return tpc;
+}
+
+template <typename TX>
+int launch_stats(const void* x, float* part_mean, float* part_m2, int B, int C, int S,
+                 int b_per_chunk, cudaStream_t stream) {
+  constexpr int VE = 16 / sizeof(TX);
+  const int G = S % VE == 0 ? VE : 1, tpc = stats_lanes(S, G), per_block = ST_THREADS / tpc;
+  const dim3 grid((B + b_per_chunk - 1) / b_per_chunk, (C + per_block - 1) / per_block);
+  const bool vec = (uintptr_t)x % 16 == 0;
+  if (G == VE) {
+    pointwise_stats_kernel<TX, VE><<<grid, ST_THREADS, 0, stream>>>(
+        (const TX*)x, part_mean, part_m2, B, C, S, tpc, b_per_chunk, vec);
+  } else {
+    pointwise_stats_kernel<TX, 1><<<grid, ST_THREADS, 0, stream>>>(
+        (const TX*)x, part_mean, part_m2, B, C, S, tpc, b_per_chunk, vec);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // C entry points. x_dtype (x, dx) and w_dtype (W, y, dy): 0 = float32,
 // 1 = bfloat16. A bfloat16 W goes to the tensor-core entry points
-// (pointwise_fwd_tc, pointwise_bwd_reduce_tc): pointwise_fwd and
-// pointwise_bwd_reduce take float32 W only. Each returns a cudaError_t as
+// (pointwise_fwd_tc, pointwise_bwd_reduce_tc, pointwise_bwd_dx_tc):
+// pointwise_fwd, pointwise_bwd_reduce and pointwise_bwd_dx take float32 W
+// only. Each returns a cudaError_t as
 // int: 0 on success, the launch error otherwise.
 // ---------------------------------------------------------------------------
 
@@ -1355,11 +1717,44 @@ extern "C" int pointwise_bwd_dx(const void* x, const float* gamma, const float* 
                                 const void* dy, const float* dg, const float* db, void* dx, int B,
                                 int C, int Co, int S, int x_dtype, int w_dtype,
                                 cudaStream_t stream) {
-  if (bad_shape(B, C, Co, S) || (w_dtype != 0 && w_dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, C, Co, S) || w_dtype != 0) return (int)cudaErrorInvalidValue;
   const Norm p{gamma, beta, mean, inv};
-  if (w_dtype == 0) {
-    X_DISPATCH(x_dtype, launch_dx<TX, float>(x, p, W, dy, dg, db, dx, B, C, Co, S, stream))
-  }
-  X_DISPATCH(x_dtype,
-             launch_dx<TX, __nv_bfloat16>(x, p, W, dy, dg, db, dx, B, C, Co, S, stream))
+  X_DISPATCH(x_dtype, launch_dx<TX>(x, p, W, dy, dg, db, dx, B, C, Co, S, stream))
+}
+
+// Pass B from a bfloat16 W and dy, Co <= TC_MAX_C (W's 64-channel slice
+// stays in shared memory); rows: the row tile, 64, 32 or 16
+extern "C" int pointwise_bwd_dx_tc(const void* x, const float* gamma, const float* beta,
+                                   const float* mean, const float* inv, const void* W,
+                                   const void* dy, const float* dg, const float* db, void* dx,
+                                   int B, int C, int Co, int S, int rows, int x_dtype,
+                                   cudaStream_t stream) {
+  if (bad_shape(B, C, Co, S) || Co > TC_MAX_C) return (int)cudaErrorInvalidValue;
+  const Norm p{gamma, beta, mean, inv};
+  X_DISPATCH(x_dtype, launch_dx_tc<TX>(x, p, W, dy, dg, db, dx, B, C, Co, S, rows, stream))
+}
+
+// The statistics' partials: per (chunk of b_per_chunk whole b, channel) the
+// chunk's mean and M2, part_mean and part_m2 [chunks, C] float32
+extern "C" int pointwise_stats(const void* x, float* part_mean, float* part_m2, int B, int C,
+                               int S, int b_per_chunk, int x_dtype, cudaStream_t stream) {
+  if (B < 1 || C < 1 || S < 1 || b_per_chunk < 1) return (int)cudaErrorInvalidValue;
+  X_DISPATCH(x_dtype, launch_stats<TX>(x, part_mean, part_m2, B, C, S, b_per_chunk, stream))
+}
+
+// mean, var (biased), inv = 1 / sqrt(var + eps) [C] from the partials; with
+// running_mean and running_var (else null), their update in place:
+// r <- one_minus_m * r + m * stat, the variance times unbias = n / (n - 1)
+extern "C" int pointwise_stats_finalize(const float* part_mean, const float* part_m2,
+                                        float* mean, float* var, float* inv,
+                                        float* running_mean, float* running_var, int B, int C,
+                                        int S, int b_per_chunk, float eps, float m,
+                                        float one_minus_m, float unbias, cudaStream_t stream) {
+  if (B < 1 || C < 1 || S < 1 || b_per_chunk < 1 || (running_mean == nullptr) != (running_var == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (B + b_per_chunk - 1) / b_per_chunk, per_block = ST_THREADS / 32;
+  pointwise_stats_finalize_kernel<<<(C + per_block - 1) / per_block, ST_THREADS, 0, stream>>>(
+      part_mean, part_m2, mean, var, inv, running_mean, running_var, B, C, S, b_per_chunk, chunks,
+      eps, m, one_minus_m, unbias);
+  return (int)cudaGetLastError();
 }

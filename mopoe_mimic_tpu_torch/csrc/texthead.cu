@@ -139,6 +139,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 #define TH_THREADS 256
 #define TH_MAX_C 128
 #define TH_FULL_MASK 0xffffffffu
@@ -1178,15 +1180,18 @@ bool bad_shape(int R, int C, int V, int dtype) {
   return R < 0 || C < 1 || C > TH_MAX_C || V < 1 || (dtype != 0 && dtype != 1);
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// cudaFuncSetAttribute and the occupancy query once per instantiation,
+// device and size (launch.cuh's prepare), not at every launch
+template <auto K>
+cudaError_t allow_smem(size_t bytes, int threads) {
+  int wave = 0;
+  return prepare<K>(bytes, threads, &wave);
 }
 
 int launch_fwd(const void* h, const void* W, const float* b, const int* tgt, float* lp,
                float* lse, int R, int C, int V, cudaStream_t stream) {
   const size_t smem = fwd_smem(C);
-  cudaError_t err = allow_smem(texthead_fwd_kernel, smem);
+  cudaError_t err = allow_smem<texthead_fwd_kernel>(smem, TH_THREADS);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((R + TH_TR - 1) / TH_TR);
   texthead_fwd_kernel<<<blocks, TH_THREADS, smem, stream>>>(
@@ -1198,7 +1203,7 @@ template <int CJ>
 int launch_dh(const void* h, const void* W, const float* b, const int* tgt, const float* lse,
               const float* g, void* dh, int R, int C, int V, cudaStream_t stream) {
   const size_t smem = dh_smem(C);
-  cudaError_t err = allow_smem(texthead_bwd_dh_kernel<CJ>, smem);
+  cudaError_t err = allow_smem<texthead_bwd_dh_kernel<CJ>>(smem, TH_THREADS);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((R + TH_TR - 1) / TH_TR);
   texthead_bwd_dh_kernel<CJ><<<blocks, TH_THREADS, smem, stream>>>(
@@ -1210,7 +1215,7 @@ template <int CJ>
 int launch_dw(const void* h, const void* W, const float* b, const int* tgt, const float* lse,
               const float* g, float* dW, float* db, int R, int C, int V, cudaStream_t stream) {
   const size_t smem = dw_smem(C);
-  cudaError_t err = allow_smem(texthead_bwd_dw_kernel<CJ>, smem);
+  cudaError_t err = allow_smem<texthead_bwd_dw_kernel<CJ>>(smem, TH_THREADS);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((V + TW_TV - 1) / TW_TV);
   texthead_bwd_dw_kernel<CJ><<<blocks, TH_THREADS, smem, stream>>>(
@@ -1233,7 +1238,7 @@ int launch_fwd_tc(const void* h, const void* W, const float* b, const int* tgt, 
                   float* lse, int R, int C, int V, cudaStream_t stream) {
   constexpr int BM = 16 * FWD_NW;
   const size_t smem = fwd_tc_smem<KT, FWD_NW>();
-  cudaError_t err = allow_smem(texthead_fwd_tc<KT, FWD_NW>, smem);
+  cudaError_t err = allow_smem<texthead_fwd_tc<KT, FWD_NW>>(smem, 32 * FWD_NW);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((R + BM - 1) / BM);
   texthead_fwd_tc<KT, FWD_NW><<<blocks, 32 * FWD_NW, smem, stream>>>(
@@ -1263,7 +1268,7 @@ int launch_dh_tc(const void* h, const void* W, const float* b, const int* tgt, c
                  const float* g, void* dh, int R, int C, int V, cudaStream_t stream) {
   constexpr int RT = dh_rt<KT>();
   const size_t smem = dh_tc_smem<KT>();
-  cudaError_t err = allow_smem(texthead_bwd_dh_tc<KT, RT>, smem);
+  cudaError_t err = allow_smem<texthead_bwd_dh_tc<KT, RT>>(smem, TC_DH_THREADS);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((R + 64 * RT - 1) / (64 * RT));
   texthead_bwd_dh_tc<KT, RT><<<blocks, TC_DH_THREADS, smem, stream>>>(
@@ -1276,7 +1281,7 @@ int launch_dw_tc_with(const void* h, const void* W, const float* b, const int* t
                       const float* lse, const float* g, float* part_dw, float* part_db, int R,
                       int C, int V, int splits, cudaStream_t stream) {
   const size_t smem = dw_tc_smem<KT>();
-  cudaError_t err = allow_smem(texthead_bwd_dw_tc<KT, ASYNC>, smem);
+  cudaError_t err = allow_smem<texthead_bwd_dw_tc<KT, ASYNC>>(smem, 64 * KT);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((V + TC_BN - 1) / TC_BN), (unsigned)splits);
   texthead_bwd_dw_tc<KT, ASYNC><<<grid, 64 * KT, smem, stream>>>(

@@ -18,7 +18,7 @@ lowers only the convolutions.
 ``fused_pointwise=True`` (``cfg.fused_pointwise``, resblocks.py:275-311 of
 the JAX package) computes ``bn1 → relu → conv1`` in train mode as one fused
 op on the same parameters (``ops/pointwise.py``: the CUDA kernels K3 on the
-card, the plain versions on the CPU) and advances ``bn1``'s running
+card, the plain versions on the CPU), which also advances ``bn1``'s running
 statistics as ``nn.BatchNorm`` would. Eval mode runs the modules. The
 parameter keys do not change.
 """
@@ -44,18 +44,6 @@ def compute_dtype_of(x: torch.Tensor) -> torch.dtype:
     if torch.is_autocast_enabled(x.device.type):
         return torch.get_autocast_dtype(x.device.type)
     return x.dtype
-
-
-@torch.no_grad()
-def update_running_stats(bn: nn.modules.batchnorm._BatchNorm, mean: torch.Tensor,
-                         var: torch.Tensor, n: int) -> None:
-    """``nn.BatchNorm``'s train-mode update from the batch statistics over
-    n elements: momentum, the running variance unbiased by n/(n − 1)."""
-    m = bn.momentum
-    bn.running_mean.mul_(1.0 - m).add_(mean.to(bn.running_mean.dtype), alpha=m)
-    bn.running_var.mul_(1.0 - m).add_((var * (n / max(n - 1, 1))).to(bn.running_var.dtype),
-                                      alpha=m)
-    bn.num_batches_tracked.add_(1)
 
 
 class _ResidualBlock(nn.Module):
@@ -108,10 +96,12 @@ class _ResidualBlock(nn.Module):
         """bn1 → relu → conv1: fused in train mode under ``fused_pointwise``."""
         if not (self.fused_pointwise and self.training):
             return self.conv1(torch.relu(self.bn1(at_least_f32(x))))
-        y, mean, var = fused_bn_relu_pointwise(
-            x, self.bn1.weight, self.bn1.bias, conv1x1_matrix(self.conv1.weight, self.transpose),
-            self.conv1.bias, self.bn1.eps, compute_dtype_of(x))
-        update_running_stats(self.bn1, mean, var, x.numel() // x.shape[1])
+        bn = self.bn1
+        y, _, _ = fused_bn_relu_pointwise(
+            x, bn.weight, bn.bias, conv1x1_matrix(self.conv1.weight, self.transpose),
+            self.conv1.bias, bn.eps, compute_dtype_of(x),
+            running=(bn.running_mean, bn.running_var, bn.momentum))
+        bn.num_batches_tracked.add_(1)
         return y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

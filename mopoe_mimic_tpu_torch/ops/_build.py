@@ -4,10 +4,11 @@ All ``csrc/*.cu`` sources compile with ``nvcc``, one process per source,
 all started at once, and link into one shared library with a plain C
 interface (no PyTorch headers: seconds to build, where
 ``torch.utils.cpp_extension.load`` takes minutes). The library goes to
-``build/kernels/`` beside the package, keyed by a hash of the sources and
-flags, so an edited kernel never loads a stale binary; ptxas's report of
-each kernel's registers and spills goes beside it. A failed build
-raises with nvcc's output; nothing falls back.
+``build/kernels/`` beside the package, keyed by a hash of the sources,
+the headers ``csrc/*.cuh`` they include and the flags, so an edited
+kernel never loads a stale binary; ptxas's report of each kernel's
+registers and spills goes beside it. A failed build raises with nvcc's
+output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -65,9 +66,10 @@ def _sources():
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, their headers and the
+    flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libmopoe_kernels_{digest.hexdigest()[:16]}.so"
@@ -122,7 +124,7 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's signature."""
     lib = ctypes.CDLL(str(build()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         # mus, lvs, mu_out, lv_out, M, B, D, masks, prior_t, stream
         "poe_subsets_f32": [ptr] * 4 + [i32] * 3 + [SubsetMasks, ctypes.c_float, ptr],
@@ -153,6 +155,13 @@ def load_library() -> ctypes.CDLL:
         "pointwise_bwd_finalize": [ptr] * 8 + [i32] * 4 + [ptr],
         # x, gamma, beta, mean, inv, W, dy, dg, db, dx, B, C, Co, S, x_dtype, w_dtype, stream
         "pointwise_bwd_dx": [ptr] * 10 + [i32] * 6 + [ptr],
+        # x, gamma, beta, mean, inv, W, dy, dg, db, dx, B, C, Co, S, rows, x_dtype, stream
+        "pointwise_bwd_dx_tc": [ptr] * 10 + [i32] * 6 + [ptr],
+        # x, part_mean, part_m2, B, C, S, b_per_chunk, x_dtype, stream
+        "pointwise_stats": [ptr] * 3 + [i32] * 5 + [ptr],
+        # part_mean, part_m2, mean, var, inv, running_mean, running_var, B, C, S,
+        # b_per_chunk, eps, m, one_minus_m, unbias, stream
+        "pointwise_stats_finalize": [ptr] * 7 + [i32] * 4 + [f32] * 4 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

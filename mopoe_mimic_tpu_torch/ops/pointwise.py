@@ -28,9 +28,12 @@ Layouts are the port's: x [B, C, *spatial] (NCHW or NCL), taken as
 
 ``fused_bn_relu_pointwise`` dispatches on the device of its tensors: on CUDA
 to the hand-written kernels (``ops/cuda_pointwise.py``, ``csrc/pointwise.cu``),
-which launch or raise; on the CPU to the plain versions here, which mirror
-the Pallas kernels ``_fwd_kernel`` (:81), ``_bwd_reduce_kernel`` (:88) and
-``_bwd_dx_kernel`` (:119) and are the kernels' oracle.
+which launch or raise, the batch statistics and the running-statistics
+update included (``pointwise_stats``); on the CPU to the plain versions
+here (``batch_stats``, ``inv_std``, ``update_running_stats``, and the
+passes, which mirror the Pallas kernels ``_fwd_kernel`` (:81),
+``_bwd_reduce_kernel`` (:88) and ``_bwd_dx_kernel`` (:119)): the kernels'
+oracle.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from mopoe_mimic_tpu_torch.ops.cuda_pointwise import pointwise_cuda
+from mopoe_mimic_tpu_torch.ops import cuda_pointwise
 
 
 def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,6 +61,17 @@ def inv_std(var: torch.Tensor, eps: float) -> torch.Tensor:
     flagship's BatchNorms at 1×1 spatial amplify that tenfold in a float32
     step's gradients (PERF.md, section 6)."""
     return 1.0 / torch.sqrt(var + eps)
+
+
+@torch.no_grad()
+def update_running_stats(running_mean: torch.Tensor, running_var: torch.Tensor,
+                         momentum: float, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+    """``nn.BatchNorm``'s train-mode update of its running buffers, in place,
+    from the batch statistics over n elements: momentum, the running
+    variance unbiased by n/(n − 1)."""
+    m = momentum
+    running_mean.mul_(1.0 - m).add_(mean.to(running_mean.dtype), alpha=m)
+    running_var.mul_(1.0 - m).add_((var * (n / max(n - 1, 1))).to(running_var.dtype), alpha=m)
 
 
 def conv1x1_matrix(weight: torch.Tensor, transpose: bool) -> torch.Tensor:
@@ -150,30 +164,37 @@ class _PlainPointwise(torch.autograd.Function):
 
 def fused_bn_relu_pointwise(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                             weight_ck: torch.Tensor, bias: Optional[torch.Tensor], eps: float,
-                            compute_dtype: torch.dtype
+                            compute_dtype: torch.dtype,
+                            running: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Train-mode ``conv1x1(relu(batchnorm(x)))`` over channel axis 1.
 
     x [B, C, *spatial] (float32 or bfloat16; float64 on the CPU); gamma,
     beta [C]; weight_ck [C, Co] (cast to ``compute_dtype`` here, as the
-    conv's autocast would); bias [Co] or None; eps the BatchNorm epsilon.
-    Returns ``(y, mean, var)``: y [B, Co, *spatial] in ``compute_dtype``,
-    differentiable in x, gamma, beta, weight_ck and bias with the full
-    train-mode BatchNorm backward; mean and var [C] the batch statistics,
-    detached, for the caller's running-statistics update.
+    conv's autocast would); bias [Co] or None; eps the BatchNorm epsilon;
+    ``running`` None or (running_mean, running_var, momentum): the
+    BatchNorm's buffers, updated in place as ``nn.BatchNorm`` does in train
+    mode (``update_running_stats``; its ``num_batches_tracked`` is the
+    caller's). Returns ``(y, mean, var)``: y [B, Co, *spatial] in
+    ``compute_dtype``, differentiable in x, gamma, beta, weight_ck and bias
+    with the full train-mode BatchNorm backward; mean and var [C] the batch
+    statistics, detached.
     """
     B, C = x.shape[:2]
     x3 = x.reshape(B, C, -1).contiguous()
-    with torch.no_grad():
-        mean, var = batch_stats(x3)
-        inv = inv_std(var, eps)
     w = weight_ck.to(compute_dtype).contiguous()
     Co = w.shape[1]
     cb = torch.zeros(Co, dtype=gamma.dtype, device=x.device) if bias is None else bias
     tensors = (x, gamma, beta, w, cb)
     if all(t.is_cuda for t in tensors):
-        y = pointwise_cuda(x3, gamma, beta, mean, inv, w, cb)
+        mean, var, inv = cuda_pointwise.pointwise_stats_cuda(x3, eps, running)
+        y = cuda_pointwise.pointwise_cuda(x3, gamma, beta, mean, inv, w, cb)
     elif not any(t.is_cuda for t in tensors):
+        with torch.no_grad():
+            mean, var = batch_stats(x3)
+            inv = inv_std(var, eps)
+            if running is not None:
+                update_running_stats(*running, mean, var, x3.shape[0] * x3.shape[2])
         y = _PlainPointwise.apply(x3, gamma, beta, mean, inv, w, cb)
     else:
         raise ValueError("fused_bn_relu_pointwise: inputs lie on different devices")

@@ -21,9 +21,12 @@ the order of the sums and the SFU's ex2 differ), gradients
 |Δ| ≤ 2e-2·max|ref| (the bfloat16 backward runs on tensor cores: the same
 products in another order), and two runs bitwise equal. K3 in float32 with TF32 off against the plain
 versions accumulated in float64: y and dx rtol 1e-5, dW, dcb, dγ, dβ rtol
-1e-4, all atol 1e-5·max|ref|; in bfloat16 (the forward and pass A on
+1e-4, all atol 1e-5·max|ref|; in bfloat16 (the forward and both passes on
 tensor cores) against the plain versions on the same inputs: y
-|Δ| ≤ 1e-2·max|ref|, gradients |Δ| ≤ 2e-2·max|ref|.
+|Δ| ≤ 1e-2·max|ref|, gradients |Δ| ≤ 2e-2·max|ref|. K3's statistics
+against float64: mean and var |Δ| ≤ 1e-5·|ref| (the mean's floor
+1e-6·sqrt(var)), inv within 1 ulp of 1/sqrt(var + eps), the running
+buffers within rtol 1e-6, atol 1e-6·max|ref|, of the plain update.
 """
 
 import numpy as np
@@ -362,8 +365,9 @@ def test_pointwise_tc_pass_a_is_bitwise_deterministic_over_chunks(device):
 
 @pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
 def test_pointwise_dispatches_on_the_weight_dtype(device, w_dtype):
-    """A bfloat16 W launches the tensor-core forward and pass A, never the
-    float32 CUDA-core kernels, and a float32 W the reverse."""
+    """A bfloat16 W launches the tensor-core forward and both passes, never
+    the float32 CUDA-core kernels, and a float32 W the reverse; the fused
+    op takes its statistics with ``pointwise_stats`` in both."""
     args = _k3_case(device, 4, 64, 64, 64, torch.float32, w_dtype, seed=3)
     before = dict(cuda_pointwise.LAUNCHES)
     chip_smoke.k3_run(args)
@@ -371,7 +375,93 @@ def test_pointwise_dispatches_on_the_weight_dtype(device, w_dtype):
     tc = int(w_dtype == torch.bfloat16)
     assert added == {"pointwise_fwd": 1 - tc, "pointwise_fwd_tc": tc,
                      "pointwise_bwd_reduce": 1 - tc, "pointwise_bwd_reduce_tc": tc,
-                     "pointwise_bwd_finalize": 1, "pointwise_bwd_dx": 1}
+                     "pointwise_bwd_finalize": 1, "pointwise_bwd_dx": 1 - tc,
+                     "pointwise_bwd_dx_tc": tc, "pointwise_stats": 0,
+                     "pointwise_stats_finalize": 0}
+    x3, g, b, _, _, w, cb, _ = args
+    before = dict(cuda_pointwise.LAUNCHES)
+    PW.fused_bn_relu_pointwise(x3, g, b, w, cb, 1e-5, w_dtype)
+    added = {n: cuda_pointwise.LAUNCHES[n] - before[n] for n in before}
+    assert added["pointwise_stats"] == added["pointwise_stats_finalize"] == 1
+
+
+EDGES = [(5, 3, 130, 33), (2, 48, 40, 7), (7, 48, 40, 1), (256, 320, 320, 1), (3, 64, 80, 8),
+         (9, 128, 72, 32), (2, 100, 64, 128), (13, 192, 192, 16), (5, 64, 64, 2)]
+
+
+def _dx_twice(args):
+    x3, g, b, m, inv, w, _, dy = args
+    _, _, dg, db = cuda_pointwise.pointwise_bwd_reduce_cuda(x3, g, b, m, inv, w, dy)
+    before = cuda_pointwise.LAUNCHES["pointwise_bwd_dx_tc"]
+    dx = cuda_pointwise.pointwise_bwd_dx_cuda(x3, g, b, m, inv, w, dy, dg, db)
+    again = cuda_pointwise.pointwise_bwd_dx_cuda(x3, g, b, m, inv, w, dy, dg, db)
+    assert cuda_pointwise.LAUNCHES["pointwise_bwd_dx_tc"] == before + 2
+    ref = PW.pointwise_bwd_dx_plain(x3, g, b, m, inv, w, dy, dg, db)
+    torch.cuda.synchronize()
+    assert dx.dtype == x3.dtype and torch.equal(dx, again)
+    err = (dx.float() - ref.float()).abs().max()
+    assert float(err) <= 2e-2 * float(ref.float().abs().max()), float(err)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,C,Co,S", EDGES)
+def test_pointwise_dx_tc_matches_plain_at_edges(device, B, C, Co, S, x_dtype):
+    """bfloat16 pass B (``pointwise_bwd_dx_tc``) at the forward's and pass
+    A's edge shapes, both conv1 layouts: C or Co not a multiple of 16, S = 1,
+    2, 8, 16, 32 (whole b a unit), 128 (runs along s), 7 and 33
+    (element-wise loads), row tiles of 64, 32 and 16 rows; against the plain
+    pass B on the same inputs, two runs bitwise equal."""
+    for transpose in (False, True):
+        _dx_twice(_k3_case(device, B, C, Co, S, x_dtype, torch.bfloat16, transpose,
+                           seed=B + C + S))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_pointwise_dx_tc_takes_unaligned_tensors(device, x_dtype):
+    """x and dy that do not start on a 16-byte boundary go through the
+    element-wise loads and stores."""
+    x3, g, b, m, inv, w, cb, dy = _k3_case(device, 4, 64, 64, 64, x_dtype, torch.bfloat16, seed=5)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+        return out.copy_(t)
+
+    _dx_twice((shifted(x3), g, b, m, inv, w, cb, shifted(dy)))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,S", [(256, 64, 4096), (256, 320, 1), (256, 256, 8), (3, 64, 25),
+                                   (7, 3, 1), (5, 130, 33), (1, 2048, 1), (9, 48, 16),
+                                   (2, 5, 1000)])
+def test_pointwise_stats_matches_float64_and_is_deterministic(device, B, C, S, x_dtype):
+    """``pointwise_stats`` + finalize at the flagship's largest, widest and a
+    small-S block and at odd shapes (one chunk, odd C, S not a multiple of a
+    16-byte group): against the float64 statistics, the running update
+    against the plain update from the kernel's statistics, two runs from the
+    same buffers bitwise equal; and from an x that is not 16-byte aligned."""
+    gen = torch.Generator(device=device).manual_seed(B + C + S)
+    x3 = (1.3 * torch.randn((B, C, S), generator=gen, device=device) + 0.2).to(x_dtype)
+    start = chip_smoke.running_buffers(C, device, seed=S)
+    shifted = torch.empty(x3.numel() + 1, dtype=x_dtype, device=device)[1:].view(x3.shape)
+    shifted.copy_(x3)
+    for x in (x3, shifted):
+        runs = []
+        for _ in range(2):
+            running = (start[0].clone(), start[1].clone(), 0.1)
+            runs.append((*cuda_pointwise.pointwise_stats_cuda(x, 1e-5, running), *running[:2]))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        mean, var, inv, rm, rv = runs[0]
+        ref_var, ref_mean = torch.var_mean(x3.double(), dim=(0, 2), correction=0)
+        assert bool(((mean.double() - ref_mean).abs()
+                     <= 1e-5 * ref_mean.abs() + 1e-6 * ref_var.sqrt()).all())
+        assert bool(((var.double() - ref_var).abs() <= 1e-5 * ref_var).all())
+        want = 1.0 / torch.sqrt(var + 1e-5)
+        assert int((inv.view(torch.int32) - want.view(torch.int32)).abs().max()) <= 1
+        plain = (start[0].clone(), start[1].clone(), 0.1)
+        PW.update_running_stats(*plain, mean, var, B * S)
+        for got, ref in zip((rm, rv), plain):
+            torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6 * float(ref.abs().max()))
 
 
 def test_fused_block_on_cuda_launches_k3_and_matches_the_cpu(device):

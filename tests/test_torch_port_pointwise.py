@@ -225,6 +225,84 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     x3 = x.permute(0, 2, 1).contiguous()
     with pytest.raises(ValueError, match="not a CUDA device"):
         pointwise_cuda(x3, g, b, g, g, w, cb)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        cuda_pointwise.pointwise_stats_cuda(x3, EPS, (g.clone(), g.clone(), 0.1))
+
+
+@pytest.mark.parametrize("shape,bias", OP_SHAPES)
+def test_plain_batch_stats_match_jax_reference(shape, bias):
+    """The fused op's plain statistics (``batch_stats``: two passes) against
+    the JAX op's (``reference_bn_relu_pointwise``: the fast variance E[x²]
+    − μ², whose float32 cancellation is ~1e-7·E[x²]): at these unit-scale
+    inputs mean rtol 1e-6 atol 1e-6, variance rtol 1e-5 atol 1e-6."""
+    x, g, b, w, cb = op_case(shape, bias, seed=6)
+    _, m_j, v_j = PP.reference_bn_relu_pointwise(x, g, b, w, cb, EPS)
+    _, m, v = PW.fused_bn_relu_pointwise(to_port(x), *(torch.from_numpy(a) for a in (g, b, w)),
+                                         None if cb is None else torch.from_numpy(cb), EPS,
+                                         torch.float32)
+    np.testing.assert_allclose(m.numpy(), np.asarray(m_j), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_j), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spatial", [(6, 5), (11,)])
+def test_fused_op_statistics_match_torch_batchnorm(spatial, dtype):
+    """The fused op's statistics on the CPU (the plain path, the kernel's
+    oracle) against ``nn.BatchNorm{2,1}d`` in train mode on the same x, cast
+    up to float32 as the unfused block does: the batch mean and biased
+    variance against a BatchNorm at momentum 1 (its running mean is the
+    batch mean, its running variance the unbiased one), and the running
+    buffers through two steps at momentum 0.1 from seeded buffers. rtol
+    1e-5, atol 1e-6: float32 sums in another order."""
+    rng = np.random.default_rng(7)
+    B, C = 4, 7
+    bn_cls = torch.nn.BatchNorm2d if len(spatial) == 2 else torch.nn.BatchNorm1d
+    ref = bn_cls(C, momentum=0.1)
+    with torch.no_grad():
+        ref.running_mean.copy_(torch.from_numpy(rng.normal(size=C) * 0.1))
+        ref.running_var.copy_(torch.from_numpy(0.5 + rng.random(C)))
+    running = (ref.running_mean.clone(), ref.running_var.clone(), 0.1)
+    g, b = torch.ones(C), torch.zeros(C)
+    w = torch.from_numpy(rng.normal(size=(C, 3)).astype(np.float32))
+    n = B * math.prod(spatial)
+    close = dict(rtol=1e-5, atol=1e-6)
+    for _ in range(2):
+        x = torch.from_numpy((rng.normal(size=(B, C, *spatial)) * 1.5 + 0.3).astype(np.float32))
+        x = x.to(dtype)
+        once = bn_cls(C, momentum=1.0)
+        ref(x.float())
+        once(x.float())
+        _, mean, var = PW.fused_bn_relu_pointwise(x, g, b, w, None, EPS, torch.float32, running)
+        assert mean.dtype == var.dtype == torch.float32
+        torch.testing.assert_close(mean, once.running_mean, **close)
+        torch.testing.assert_close(var * (n / (n - 1)), once.running_var, **close)
+        torch.testing.assert_close(running[0], ref.running_mean, **close)
+        torch.testing.assert_close(running[1], ref.running_var, **close)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_fused_op_running_update_equals_the_blocks_former_update(dtype):
+    """On the CPU the fused op's ``running`` argument updates the buffers
+    exactly as the block's separate update did before it (``nn.BatchNorm``'s
+    formula on the op's statistics, written out here), and a fused block in
+    train mode counts its batch once."""
+    x, g, b, w, _ = op_case((5, 3, 4, 6), False, seed=8)
+    x, g, b, w = to_port(x).to(dtype), *(torch.from_numpy(a) for a in (g, b, w))
+    buf = torch.float64 if dtype == torch.float64 else torch.float32
+    start = (torch.linspace(-0.2, 0.3, 6, dtype=buf), torch.linspace(0.5, 2.0, 6, dtype=buf))
+    running = (start[0].clone(), start[1].clone(), 0.1)
+    compute = torch.float64 if dtype == torch.float64 else torch.float32
+    args = (g.to(compute), b.to(compute), w.to(compute))
+    _, mean, var = PW.fused_bn_relu_pointwise(x, *args, None, EPS, compute, running)
+    n, m = 5 * 3 * 4, 0.1
+    want_mean = start[0].clone().mul_(1.0 - m).add_(mean.to(buf), alpha=m)
+    want_var = start[1].clone().mul_(1.0 - m).add_((var * (n / (n - 1))).to(buf), alpha=m)
+    assert torch.equal(running[0], want_mean) and torch.equal(running[1], want_var)
+
+    block = TR.ResidualBlock2dConv(6, 4, fused_pointwise=True).to(compute)
+    before = block.bn1.num_batches_tracked.clone()
+    block.train()(x.to(compute))
+    assert int(block.bn1.num_batches_tracked) == int(before) + 1
 
 
 # (B, C, S) of the flagship's 32 blocks, and odd ones
@@ -254,6 +332,42 @@ def test_reduce_chunks_cover_the_rows(R, C, Co):
         starts = range(0, chunks * rows, rows)
         covered = [n for start in starts for n in range(start, min(R, start + rows))]
         assert covered == list(range(R))
+
+
+def _persistent_tiles(tiles: int, grid_x: int):
+    """The row tiles that the blocks of pointwise_bwd_dx_tc's persistent
+    grid take (csrc: block bx takes tiles bx, bx + grid_x, ..., my_tiles of
+    them), in the order the blocks take them."""
+    for bx in range(grid_x):
+        mine = (tiles - 1 - bx) // grid_x + 1 if tiles > bx else 0
+        yield from (bx + t * grid_x for t in range(mine))
+
+
+@pytest.mark.parametrize("B,C,S", FLAGSHIP_BLOCKS + ODD_BLOCKS)
+def test_dx_tc_and_stats_tilings_cover_the_rows(B, C, S):
+    """bfloat16 pass B's row tiles (``dx_tc_rows``, the persistent grid at
+    any width) take every row exactly once, 64-row tiles where they fill a
+    wave and smaller ones where those fill it better; the statistics'
+    chunks (``stats_chunks``) take every b exactly once, with the partials'
+    traffic below the bytes of x."""
+    R, c_tiles = B * S, math.ceil(C / 64)
+    rows = cuda_pointwise.dx_tc_rows(R, C)
+    tiles = math.ceil(R / rows)
+    wave = cuda_pointwise.WAVE_BLOCKS
+    assert rows in (16, 32, 64)
+    assert (rows == 64) == (math.ceil(R / 64) * c_tiles >= wave)
+    if math.ceil(R / 16) * c_tiles >= wave:
+        assert tiles * c_tiles >= wave
+    for grid_x in sorted({1, 7, max(1, min(tiles, wave // c_tiles)), tiles}):
+        assert sorted(_persistent_tiles(tiles, grid_x)) == list(range(tiles))
+    assert (tiles - 1) * rows < R <= tiles * rows
+    for x_bytes in (2, 4):
+        per, chunks = cuda_pointwise.stats_chunks(B, C, S, x_bytes)
+        covered = [b for k in range(chunks) for b in range(k * per, min(B, (k + 1) * per))]
+        assert covered == list(range(B)) and (chunks - 1) * per < B
+        assert chunks == 1 or 16 * chunks < B * S * x_bytes
+        lanes = cuda_pointwise.stats_lanes(S, x_bytes)
+        assert lanes in (1, 2, 4, 8, 16, 32)
 
 
 @pytest.mark.parametrize("B,C,S", FLAGSHIP_BLOCKS)
@@ -459,11 +573,55 @@ def test_fused_model_runs_every_block_through_the_op(monkeypatch):
     assert sum(isinstance(m, TR._ResidualBlock) for m in model.modules()) == 32
 
 
+def test_chip_smoke_profile_takes_each_kernel_from_a_session_that_recorded_it(monkeypatch):
+    """chip_smoke.py's ``device_us_by_kernel`` against sessions of a stand-in
+    profiler that drop all of a session's events, or some launches: each
+    kernel's time comes from the first session that recorded all its
+    launches, sessions are retaken until every expected kernel has one, and
+    a kernel that no session recorded is left out."""
+    import types
+
+    import chip_smoke
+    from torch.autograd import DeviceType
+
+    def event(name, us):
+        return types.SimpleNamespace(device_type=DeviceType.CUDA, name=f"void {name}<1>(int)",
+                                     time_range=types.SimpleNamespace(start=0.0, end=us))
+
+    def session(records):
+        class Session:
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def events(self):
+                return [event(n, us) for n, us in records]
+        return Session()
+
+    def profiler(sessions):
+        it = iter(sessions)
+        monkeypatch.setattr(torch.profiler, "profile", lambda **kw: session(next(it)))
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    a5, b5 = [("a", 2.0)] * 5, [("b", 4.0)] * 10
+    profiler([[], [("a", 3.0)] * 3, a5, b5])  # empty; a partly; a whole; b whole
+    assert chip_smoke.device_us_by_kernel(lambda: None, expect=("a", "b")) == {"a": 2.0,
+                                                                                "b": 8.0}
+    profiler([[("a", 3.0)] * 3] * 6)  # 3 of 5 launches: the mean a launch, once a call
+    assert chip_smoke.device_us_by_kernel(lambda: None, expect=("a",)) == {"a": 3.0}
+    profiler([[]] * 6)
+    assert chip_smoke.device_us_by_kernel(lambda: None, expect=("a",)) == {}
+    profiler([[], a5 + b5])  # without expect, the first session that recorded anything
+    assert chip_smoke.device_us_by_kernel(lambda: None) == {"a": 2.0, "b": 8.0}
+
+
 def test_chip_smoke_k3_phase_and_fused_training_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's K3 phase (checks, timings, bounds, the cuDNN
-    comparison) with the plain versions standing in for the kernels, at
-    small shapes, and its fused_pointwise training run on the CPU, where
-    no kernel launches."""
+    comparison, the statistics' checks and timings) with the plain versions
+    standing in for the kernels, at small shapes, and its fused_pointwise
+    training run on the CPU, where no kernel launches."""
     import chip_smoke
 
     cp = chip_smoke.cuda_pointwise
@@ -475,6 +633,21 @@ def test_chip_smoke_k3_phase_and_fused_training_rehearse_on_cpu(monkeypatch):
     def finalize(dw, dcb, dg, db):
         return dw.sum(0), dcb.sum(0), dg.sum((0, 1)), db.sum((0, 1))
 
+    def stats_partials(x3):  # each chunk's mean and M2, two passes
+        B, C, S = x3.shape
+        chunks = x3.float().split(cp.stats_chunks(B, C, S, x3.element_size())[0])
+        means = [c.mean((0, 2)) for c in chunks]
+        return torch.stack([torch.stack(means), torch.stack(
+            [(c - m[:, None]).square().sum((0, 2)) for c, m in zip(chunks, means)])])
+
+    def stats_finalize(part, B, S, per, eps, running=None):
+        counts = torch.tensor([(min(B, (k + 1) * per) - k * per) * S
+                               for k in range(part.shape[1])], dtype=torch.float32)
+        mean, var, inv = chip_smoke.stats_finalize_plain(part, counts, eps)
+        if running is not None:
+            PW.update_running_stats(*running, mean, var, B * S)
+        return mean, var, inv
+
     monkeypatch.setattr(cp, "pointwise_fwd_cuda",
                         lambda *a: PW.pointwise_fwd_plain(*a).to(a[5].dtype))
     monkeypatch.setattr(cp, "pointwise_bwd_partials_cuda", partials)
@@ -482,6 +655,9 @@ def test_chip_smoke_k3_phase_and_fused_training_rehearse_on_cpu(monkeypatch):
     monkeypatch.setattr(cp, "pointwise_bwd_reduce_cuda", lambda *a: finalize(*partials(*a)))
     monkeypatch.setattr(cp, "pointwise_bwd_dx_cuda",
                         lambda *a: PW.pointwise_bwd_dx_plain(*a).to(a[0].dtype))
+    monkeypatch.setattr(cp, "pointwise_stats_cuda", chip_smoke.plain_stats)
+    monkeypatch.setattr(cp, "pointwise_stats_partials_cuda", stats_partials)
+    monkeypatch.setattr(cp, "pointwise_stats_finalize_cuda", stats_finalize)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, calls=1, warmup=0: (fn(), 1.0)[1])
     monkeypatch.setattr(chip_smoke, "K3_CASES", ((3, 64, 64, (5, 5), True, True),
@@ -491,8 +667,25 @@ def test_chip_smoke_k3_phase_and_fused_training_rehearse_on_cpu(monkeypatch):
     with warnings.catch_warnings():  # autocast("cuda") warns that it is off without a card
         warnings.simplefilter("ignore", UserWarning)
         out = chip_smoke.k3_against_plain(torch.device("cpu"))
+        stats = chip_smoke.k3_stats_against_plain(torch.device("cpu"), "card")
     keys = {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    assert set(out) == set(chip_smoke.K3) and all(keys <= set(v) for v in out.values())
+    assert set(stats) == {"pointwise_stats", "pointwise_stats_finalize"}
+    assert set(out) | set(stats) == set(chip_smoke.K3)
+    assert all(keys <= set(v) for v in (*out.values(), *stats.values()))
+    # the statistics read x (4, 32, 64) bf16 once and write mean, var and inv
+    # and the two running buffers (read too) of 32 channels
+    assert stats["pointwise_stats"]["bound_ms"] == pytest.approx(
+        (4 * 32 * 64 * 2 + 7 * 32 * 4) / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    assert stats["pointwise_stats"]["library_ms"] == 1.0
+    assert stats["pointwise_stats_finalize"]["library_ms"] is None
+    x3 = torch.randn(5, 6, 7) * 3 + 1
+    part = stats_partials(x3)  # the plain finalize merges per-chunk states exactly
+    per = cp.stats_chunks(5, 6, 7, 4)[0]
+    assert part.shape[1] > 1
+    mean, var, _ = stats_finalize(part, 5, 7, per, EPS)
+    ref_mean, ref_var = PW.batch_stats(x3)
+    torch.testing.assert_close(mean, ref_mean, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(var, ref_var, rtol=1e-5, atol=1e-6)
     assert out["pointwise_fwd_tc"]["block_ms"].keys() == {"fused_fwd", "fused_fwd_bwd",
                                                           "unfused_fwd", "unfused_fwd_bwd"}
     # bf16 pass A's bound at (4, 32, 32, 8×8), x bf16: x, dy and W read
@@ -507,14 +700,22 @@ def test_chip_smoke_k3_phase_and_fused_training_rehearse_on_cpu(monkeypatch):
     assert out["pointwise_fwd"]["bound_ms"] > out["pointwise_fwd_tc"]["bound_ms"]
 
     # phase 7's per-block-shape profile, the profiler's figures stood in for
-    names = ("pointwise_fwd_tc", "pointwise_bwd_reduce_tc", "pointwise_bwd_finalize_kernel",
-             "pointwise_bwd_dx_kernel")
+    names = ("pointwise_stats_kernel", "pointwise_stats_finalize_kernel", "pointwise_fwd_tc",
+             "pointwise_bwd_reduce_tc", "pointwise_bwd_finalize_kernel", "pointwise_bwd_dx_tc")
     monkeypatch.setattr(chip_smoke, "device_us_by_kernel",
-                        lambda fn, calls=5: (fn(), dict.fromkeys(names, 2.0))[1])
+                        lambda fn, calls=5, expect=(): (fn(), dict.fromkeys(names, 2.0))[1])
     shapes = {(4, 32, 8, 32, torch.bfloat16): 2, (3, 64, 1, 64, torch.float32): 1}
     assert chip_smoke.k3_block_profile(shapes, torch.device("cpu"), "card") == {
-        "pointwise_fwd_tc": 6.0, "pointwise_bwd_reduce_tc": 6.0, "pointwise_bwd_finalize": 6.0,
-        "pointwise_bwd_dx": 6.0}
+        "pointwise_stats": 6.0, "pointwise_stats_finalize": 6.0, "pointwise_fwd_tc": 6.0,
+        "pointwise_bwd_reduce_tc": 6.0, "pointwise_bwd_finalize": 6.0,
+        "pointwise_bwd_dx_tc": 6.0, "plain_stats": 36.0}
+    # where no profiler session recorded a kernel, CUDA events time it (1 ms here)
+    monkeypatch.setattr(chip_smoke, "device_us_by_kernel",
+                        lambda fn, calls=5, expect=(): (fn(), {})[1])
+    assert chip_smoke.k3_block_profile(shapes, torch.device("cpu"), "card") == dict.fromkeys(
+        ("pointwise_stats", "pointwise_stats_finalize", "pointwise_fwd_tc",
+         "pointwise_bwd_reduce_tc", "pointwise_bwd_finalize", "pointwise_bwd_dx_tc",
+         "plain_stats"), 3000.0)
 
     cfg = MopoeConfig(**KW, **CASE, lr_warmup_steps=300)
     run = chip_smoke.drive_training(cfg, "cpu", kernels=(), per_step={}, warmup=1, steps=1)

@@ -199,6 +199,7 @@ DH_TC = "_Z18texthead_bwd_dh_tcILi4ELi2EEvPK13__nv_bfloat16"
 DW_TC = "_Z18texthead_bwd_dw_tcILi4ELb1EEv"
 PW_FWD_TC = "_ZN45_GLOBAL__N__12_pointwise_cu16pointwise_fwd_tcIfLi1EEEvPKT_"
 PW_RED_TC = "_ZN45_GLOBAL__N__12_pointwise_cu23pointwise_bwd_reduce_tcIfLi1EEEvPKT_"
+PW_DX_TC = "_ZN45_GLOBAL__N__12_pointwise_cu19pointwise_bwd_dx_tcIfLi2ELi16EEEvPKT_"
 
 
 def _fake_build(monkeypatch, tmp_path, sass):
@@ -230,6 +231,10 @@ def _fake_build(monkeypatch, tmp_path, sass):
         f"ptxas info    : Function properties for {PW_RED_TC}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 255 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{PW_DX_TC}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {PW_DX_TC}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 90 registers, used 1 barriers",
         "ptxas info    : Compiling entry function '_Z19texthead_fwd_kernelIfEv' for 'sm_90a'",
         "ptxas info    : Used 120 registers, used 1 barriers"]))
     monkeypatch.setattr(chip_smoke._build, "build_log_path", lambda: log)
@@ -250,6 +255,7 @@ SASS = "\n".join([
     f"        Function : {PW_FWD_TC}", "        /*0c00*/  HMMA.16816.F32.BF16 R8, R12, R4, R8 ;",
     f"        Function : {PW_RED_TC}", "        /*0d00*/  HMMA.16816.F32.BF16 R8, R12, R4, R8 ;",
     "        /*0d10*/  HMMA.16816.F32.BF16 R8, R12, R6, R8 ;",
+    f"        Function : {PW_DX_TC}", "        /*0e00*/  HMMA.16816.F32.BF16 R8, R12, R4, R8 ;",
     "        Function : _Z19texthead_fwd_kernelIfEv",
     "        /*0010*/  FFMA R1, R2, R3, R1 ;"])
 
@@ -272,12 +278,15 @@ def test_chip_smoke_reads_registers_spills_and_tensor_core_instructions(monkeypa
     assert got["pointwise_bwd_reduce_tc"] == {PW_RED_TC: {
         "registers": 255, "tensor_core_instructions": 2, "stack_bytes": 0,
         "spill_store_bytes": 0, "spill_load_bytes": 0}}
+    assert got["pointwise_bwd_dx_tc"] == {PW_DX_TC: {
+        "registers": 90, "tensor_core_instructions": 1, "stack_bytes": 0,
+        "spill_store_bytes": 0, "spill_load_bytes": 0}}
     _fake_build(monkeypatch, tmp_path, SASS.replace("HMMA", "FFMA"))
     with pytest.raises(chip_smoke.SmokeFailure, match="HMMA"):
         chip_smoke.kernel_resources("lib.so")
 
 
-@pytest.mark.parametrize("mangled", [FWD_TC, DH_TC, DW_TC, PW_FWD_TC, PW_RED_TC])
+@pytest.mark.parametrize("mangled", [FWD_TC, DH_TC, DW_TC, PW_FWD_TC, PW_RED_TC, PW_DX_TC])
 def test_chip_smoke_fails_a_tensor_core_kernel_without_hmma(monkeypatch, tmp_path, mangled):
     """One instantiation whose SASS has no HMMA (here each kernel's in turn,
     the new forward's among them) fails phase 2, naming it."""
