@@ -9,20 +9,27 @@ any failure of which exits non-zero:
 
   1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
   2. build: the CUDA kernels from ``mopoe_mimic_tpu_torch/csrc`` into
-     ``build/kernels/``, one nvcc per source, all at once; for the
-     tensor-core kernels (K2's bfloat16 ``texthead_fwd``, ``texthead_bwd_dh``,
-     ``texthead_bwd_dw``; K3's ``pointwise_fwd_tc``, ``pointwise_bwd_reduce_tc``
-     and ``pointwise_bwd_dx_tc``) ptxas's registers and spills and the count
-     of HMMA/HGMMA instructions in their SASS (``cuobjdump -sass``), which
-     must not be 0 in any instantiation;
-  3. K1 against its plain PyTorch version on the card, M ∈ {1, 2, 3},
-     B ∈ {1, 5, 8, 32, 128, 256}, D = 64, with and without the prior
-     expert: max |Δ| ≤ 1e-6·max(1, |ref|); then both timed at B = 128, 256,
-     and the host's µs per call of each piece of one ``poe_subsets_cuda``
-     call (``k1_host_us``: 1000 back-to-back calls of each);
-     K1's backward against the closed-form plain backward and against
-     autograd of the plain forward, M ∈ {1, 2, 3}, B ∈ {1, 5, 256}, prior
-     both ways: |Δ| ≤ 1e-5·max(1, |ref|); timed at B = 256;
+     ``build/kernels/``, one nvcc per source, all at once; ptxas's
+     registers and spills of every instantiation of K1's kernels (none may
+     spill); for the tensor-core kernels (K2's bfloat16 ``texthead_fwd``,
+     ``texthead_bwd_dh``, ``texthead_bwd_dw``; K3's ``pointwise_fwd_tc``,
+     ``pointwise_bwd_reduce_tc`` and ``pointwise_bwd_dx_tc``) ptxas's
+     registers and spills and the count of HMMA/HGMMA instructions in their
+     SASS (``cuobjdump -sass``), which must not be 0 in any instantiation;
+  3. K1, forward and backward, against the plain versions on the card: the
+     power-set kernels at M ∈ {1, 2, 3}, B ∈ {1, 5, 8, 32, 128, 256},
+     D ∈ {64, 6}, with and without the prior expert, the experts given as
+     separate tensors, as strided views and as a stacked pair; the generic
+     kernels on four other masks: forward |Δ| ≤ 1e-6·max(1, |ref|), backward
+     (against the closed form and autograd of the plain forward)
+     ≤ 1e-5·max(1, |ref|), every case's forward also compared bitwise and
+     counted; the backward under a saved-tensor hook that keeps host
+     copies, with the forward's experts overwritten (it must read the
+     tensors autograd gives back); then both
+     kernels' device time at B ∈ {8, 128, 256} (profiler), both timed at
+     those B against the plain versions, and the host's µs per call of each
+     piece of one ``poe_subsets_cuda`` call (``k1_host_us``: 1000
+     back-to-back calls of each);
      K2 (forward, dh, dW/db: in bfloat16 dW as row-split partials and their
      finalize) against the plain pair: (B, L, C, V) = (3, 17, 10, 37),
      (4, 128, 64, 3517) and the flagship (256, 128, 64, 3517) in float32
@@ -83,7 +90,11 @@ any failure of which exits non-zero:
      forward, K1 backward launched in every step, K2's four kernels
      exactly once and no K3 kernel; the step's p50 and samples/s, then a
      profile of 3 steps
-     (device idle share, device time by kernel and the port's kernels');
+     (device idle share, device ops a step, device time by kernel and the
+     port's kernels'); then one step under PyTorch's sync debug mode, which
+     prints each synchronizing operation and where it arose, and fails if
+     one arose in the latent block (``ops/fusion.py``,
+     ``ops/cuda_fusion.py``, ``models/mmvae.py``);
      then the same run with ``fused_pointwise=True`` as well, with each of
      K3's bfloat16 kernels (``pointwise_stats``, ``pointwise_stats_finalize``,
      ``pointwise_fwd_tc``, ``pointwise_bwd_reduce_tc``,
@@ -239,29 +250,57 @@ def card() -> str:
     return proc.stdout.strip()
 
 
-def kernel_resources(lib_path: str) -> dict:
-    """Phase 2's evidence for the tensor-core kernels: ptxas's registers,
-    spill bytes and stack frame for each of their instantiations (the
-    build's ``-Xptxas -v`` report) and the count of tensor-core
-    instructions (HMMA or HGMMA) in each one's SASS (``cuobjdump -sass``
-    of the built library). Fails if a kernel has none."""
+def ptxas_report() -> dict:
+    """ptxas's registers, spill bytes and stack frame of every kernel
+    instantiation of the build (its ``-Xptxas -v`` report), by mangled
+    name."""
     found, current = {}, None
     for line in _build.build_log_path().read_text().splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             current = entry.group(1)
+            found[current] = {}
             continue
-        if current is None or not any(k in current for k in TENSOR_CORE_KERNELS):
+        if current is None:
             continue
-        info = found.setdefault(current, {})
         spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
         if spill:
-            info.update(stack_bytes=int(spill.group(1)), spill_store_bytes=int(spill.group(2)),
-                        spill_load_bytes=int(spill.group(3)))
+            found[current].update(stack_bytes=int(spill.group(1)),
+                                  spill_store_bytes=int(spill.group(2)),
+                                  spill_load_bytes=int(spill.group(3)))
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
-            info["registers"] = int(regs.group(1))
+            found[current]["registers"] = int(regs.group(1))
+    return found
+
+
+def k1_resources(report: dict) -> dict:
+    """Phase 2's evidence for K1: registers and spills of each instantiation
+    of its kernels (forward and backward, power set and generic). Fails if
+    one is missing from the report or spills."""
+    mine = {name: info for name, info in report.items() if "poe_subsets" in name}
+    for glob in (*K1_GLOBALS.values(), "poe_subsets_generic_f32_kernel",
+                 "poe_subsets_generic_bwd_f32_kernel"):
+        n = sum(glob in name for name in mine)
+        check(n == (1 if "generic" in glob else 6), f"{glob}: {n} instantiations in the report")
+    for name, info in sorted(mine.items()):
+        check(info.get("spill_store_bytes") == 0 and info.get("spill_load_bytes") == 0,
+              f"{name}: spills {info}")
+        print(f"ptxas {name}: {info.get('registers')} registers, spills "
+              f"{info.get('spill_store_bytes')} B stored / {info.get('spill_load_bytes')} B "
+              f"loaded, stack {info.get('stack_bytes')} B")
+    return mine
+
+
+def kernel_resources(lib_path: str, report: dict = None) -> dict:
+    """Phase 2's evidence for the tensor-core kernels: ptxas's registers,
+    spill bytes and stack frame for each of their instantiations
+    (``report``, else ``ptxas_report()``) and the count of tensor-core
+    instructions (HMMA or HGMMA) in each one's SASS (``cuobjdump -sass`` of
+    the built library). Fails if a kernel has none."""
+    found = {name: dict(info) for name, info in (report or ptxas_report()).items()
+             if any(k in name for k in TENSOR_CORE_KERNELS)}
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     proc = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
                           timeout=300)
@@ -310,84 +349,255 @@ def cuda_ms(fn, calls: int = 100, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
-def k1_against_plain(device: torch.device) -> dict:
-    rng = np.random.default_rng(0)
+# K1's cases: the experts as separate [B, D] tensors, as views of one wide
+# tensor with a row stride other than D, and as a stacked [M, B, D] pair
+K1_FORMS = ("separate", "strided", "stacked")
+K1_BATCHES = (1, 5, 8, 32, 128, 256)
+K1_DIMS = (64, 6)
+K1_TIMED_BATCHES = (8, 128, 256)
+K1_GLOBALS = {"poe_subsets_f32": "poe_subsets_f32_kernel",
+              "poe_subsets_bwd_f32": "poe_subsets_bwd_f32_kernel"}
+
+
+def k1_values(rng, m: int, b: int, d: int, device) -> tuple:
+    """Seeded experts, stacked: mus, logvars [M, B, D] float32 on ``device``."""
+    return tuple(torch.from_numpy(rng.normal(size=(m, b, d)).astype(np.float32)).to(device)
+                 for _ in range(2))
+
+
+def k1_experts(values: tuple, form: str, grad: bool = False) -> tuple:
+    """The stacked experts ``values`` in ``form`` (K1_FORMS): (mus,
+    logvars) as ``poe_subsets_cuda`` takes them, and the flat list of
+    tensors whose gradients autograd is asked for (leaves, or views of a
+    leaf, recording gradients where ``grad``)."""
+    mus, lvs = values
+    m, b, d = mus.shape
+    if form == "stacked":
+        pair = [x.clone().requires_grad_(grad) for x in values]
+        return pair[0], pair[1], pair
+    if form == "separate":
+        experts = [x.clone().requires_grad_(grad) for x in (*mus, *lvs)]
+    else:
+        wide = torch.zeros((b, 2 * m * (d + 4)), device=mus.device)
+        starts = [k * (d + 4) for k in range(2 * m)]
+        for start, x in zip(starts, (*mus, *lvs)):
+            wide[:, start:start + d] = x
+        wide.requires_grad_(grad)
+        experts = [wide[:, start:start + d] for start in starts]
+    return experts[:m], experts[m:], experts
+
+
+def k1_stacked_grads(grads, m: int) -> tuple:
+    """Gradients as autograd gives them for ``k1_experts``' list: dmu, dlv
+    [M, B, D]."""
+    if len(grads) == 2:
+        return grads[0], grads[1]
+    return torch.stack(grads[:m]), torch.stack(grads[m:])
+
+
+def k1_case(values, mask, prior: bool, form: str, up: tuple) -> dict:
+    """One K1 case on the card: the forward without a gradient against the
+    plain forward; the gradients through the kernels (the forward recording,
+    then the backward kernel) against the closed-form plain backward and
+    against autograd of the plain forward. Returns the largest |Δ| of each
+    and whether the forward was bitwise equal."""
+    m = values[0].shape[0]
+    mus, lvs, _ = k1_experts(values, form)
+    got = cuda_fusion.poe_subsets_cuda(mus, lvs, mask, prior_expert=prior)
+    ref = F.poe_subsets(*values, mask, prior_expert=prior)
+    g_mus, g_lvs, leaves = k1_experts(values, form, grad=True)
+    grads = k1_stacked_grads(torch.autograd.grad(
+        cuda_fusion.poe_subsets_cuda(g_mus, g_lvs, mask, prior_expert=prior), leaves, up), m)
+    closed = F.poe_subsets_bwd(*values, *up, mask, prior_expert=prior)
+    y = [x.clone().requires_grad_() for x in values]
+    auto = torch.autograd.grad(F.poe_subsets(*y, mask, prior_expert=prior), y, up)
+    torch.cuda.synchronize()
+    tag = f"M={m} B={values[0].shape[1]} D={values[0].shape[2]} prior={prior} {form}"
+    fwd = 0.0
+    for g, r, what in zip(got, ref, ("mu", "logvar")):
+        check(g.shape == r.shape, f"K1 {what} {tag}: shape {tuple(g.shape)} != {tuple(r.shape)}")
+        err = (g - r).abs()
+        check(bool((err <= 1e-6 * r.abs().clamp(min=1.0)).all()),
+              f"K1 {what} {tag}: max |Δ| {err.max().item():.3e}")
+        fwd = max(fwd, err.max().item())
+    bwd = 0.0
+    for ref_name, refs in (("plain", closed), ("autograd", auto)):
+        for g, r, what in zip(grads, refs, ("dmu", "dlogvar")):
+            err = (g - r).abs()
+            check(bool((err <= 1e-5 * r.abs().clamp(min=1.0)).all()),
+                  f"K1 bwd {what} vs {ref_name} {tag}: max |Δ| {err.max().item():.3e}")
+            bwd = max(bwd, err.max().item())
+    return {"fwd": fwd, "bwd": bwd, "bitwise": all(torch.equal(g, r) for g, r in zip(got, ref))}
+
+
+def k1_generic_masks() -> list:
+    """Masks that take the generic kernels: the power set of 3 in reverse
+    and three of its rows out of order, the power set of 4 experts (more
+    than the power-set kernels take) and of 2 in reverse."""
+    three = F.subset_mask_matrix(NAMES)
+    return [three[::-1], three[[6, 0, 3]], F.subset_mask_matrix(("a", "b", "c", "d")),
+            F.subset_mask_matrix(NAMES[:2])[::-1]]
+
+
+def k1_saved_hook_case(values, mask, form: str, up: tuple) -> float:
+    """The backward kernel under a saved-tensor hook that keeps a host copy
+    (as ``save_on_cpu`` does, which keeps CPU tensors as they are), with the
+    forward's experts overwritten by NaN before the backward: it reads the
+    experts that autograd unpacks, so its gradients still match the closed
+    form at 1e-5·max(1, |ref|). Returns the largest |Δ|."""
+    m = values[0].shape[0]
+    mus, lvs, leaves = k1_experts(values, form, grad=True)
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda x: (x.device, x.to("cpu", copy=True)), lambda saved: saved[1].to(saved[0])):
+        out = cuda_fusion.poe_subsets_cuda(mus, lvs, mask)
+    for x in leaves:  # the same memory, the version counters untouched
+        x.data.fill_(float("nan"))
+    grads = k1_stacked_grads(torch.autograd.grad(out, leaves, up), m)
     worst = 0.0
-    for m in (1, 2, 3):
-        mask = F.subset_mask_matrix(NAMES[:m])
-        for b in (1, 5, 8, 32, 128, 256):
-            mus = torch.from_numpy(rng.normal(size=(m, b, 64)).astype(np.float32)).to(device)
-            lvs = torch.from_numpy(rng.normal(size=(m, b, 64)).astype(np.float32)).to(device)
-            for prior in (False, True):
-                got = cuda_fusion.poe_subsets_cuda(mus, lvs, mask, prior_expert=prior)
-                ref = F.poe_subsets(mus, lvs, mask, prior_expert=prior)
-                torch.cuda.synchronize()
-                for g, r, what in zip(got, ref, ("mu", "logvar")):
-                    check(g.shape == r.shape, f"K1 shape {tuple(g.shape)} != {tuple(r.shape)}")
-                    err = (g - r).abs()
-                    bound = 1e-6 * torch.clamp(r.abs(), min=1.0)
-                    check(bool((err <= bound).all()),
-                          f"K1 {what} M={m} B={b} prior={prior}: max |Δ| {err.max().item():.3e}")
-                    worst = max(worst, err.max().item())
-    print(f"K1 vs plain: max |Δ| {worst:.3e} over M∈{{1,2,3}}, B∈{{1,5,8,32,128,256}}, "
-          "D=64, prior both ways (bound 1e-6·max(1,|ref|))")
+    for g, r, what in zip(grads, F.poe_subsets_bwd(*values, *up, mask), ("dmu", "dlogvar")):
+        err = (g - r).abs()
+        check(bool((err <= 1e-5 * r.abs().clamp(min=1.0)).all()),
+              f"K1 bwd {what} under a saved-tensor hook, M={m} {form}: "
+              f"max |Δ| {err.max().item():.3e}")
+        worst = max(worst, err.max().item())
+    return worst
 
+
+def k1_against_plain(device: torch.device) -> dict:
+    """K1's forward and backward against the plain versions (``k1_case``):
+    the power-set layouts at M ∈ {1, 2, 3}, every B of K1_BATCHES and D of
+    K1_DIMS, prior both ways, the experts in each of K1_FORMS; then the
+    generic kernels (``k1_generic_masks``) at B ∈ {5, 256}, D = 64; then
+    the backward under a saved-tensor hook (``k1_saved_hook_case``) at
+    M = 3, B = 8, D = 64 in each form. Forward |Δ| ≤ 1e-6·max(1, |ref|),
+    backward 1e-5·max(1, |ref|)."""
+    rng = np.random.default_rng(0)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    cases, bitwise = 0, 0
+    powerset = [(F.subset_mask_matrix(NAMES[:m]), m, b, d, form)
+                for m in (1, 2, 3) for b in K1_BATCHES for d in K1_DIMS for form in K1_FORMS]
+    generic = [(mask, mask.shape[1], b, 64, form) for mask in k1_generic_masks()
+               for b in (5, 256) for form in ("separate", "stacked")]
+    for mask, m, b, d, form in powerset + generic:
+        full = F.subset_mask_matrix(tuple(f"m{i}" for i in range(m)))
+        check((cuda_fusion.kernel_layout(mask, m).masks is None)
+              == (m <= 3 and np.array_equal(mask, full)), f"K1 layout of {mask.tolist()}")
+        values = k1_values(rng, m, b, d, device)
+        up = k1_values(rng, mask.shape[0], b, d, device)
+        for prior in (False, True):
+            got = k1_case(values, mask, prior, form, up)
+            worst["fwd"] = max(worst["fwd"], got["fwd"])
+            worst["bwd"] = max(worst["bwd"], got["bwd"])
+            cases += 1
+            bitwise += got["bitwise"]
     mask = F.subset_mask_matrix(NAMES)
-    n_sub, members = mask.shape[0], int(np.asarray(mask).sum())
-    times = k1_times(device)
-    # per (b, d): M precisions (exp, add, divide), per subset the member sums
-    # of T and mu·T, a divide and a log
-    ops = 128 * 64 * (3 * 3 + 2 * members + 3 * n_sub)
-    return {"max_abs_err": worst, "ms": times[128][0], "plain_ms": times[128][1],
-            **least_time(2 * 3 * 128 * 64 * 4 + 2 * n_sub * 128 * 64 * 4, ops, torch.float32),
-            "library_ms": None, "ms_b256": times[256][0], "host_us": k1_host_us(device)}
+    hooked = max(k1_saved_hook_case(k1_values(rng, 3, 8, 64, device), mask, form,
+                                    k1_values(rng, 7, 8, 64, device)) for form in K1_FORMS)
+    worst["bwd"] = max(worst["bwd"], hooked)
+    print(f"K1 vs plain, {cases} cases (power set: M∈{{1,2,3}}, B∈{K1_BATCHES}, D∈{K1_DIMS}, "
+          f"prior both ways, experts {', '.join(K1_FORMS)}; generic: "
+          f"{len(k1_generic_masks())} masks, B∈{{5,256}}, D=64): forward max |Δ| "
+          f"{worst['fwd']:.3e} (bound 1e-6·max(1,|ref|)), bitwise equal in {bitwise} of "
+          f"{cases}; backward max |Δ| {worst['bwd']:.3e} vs the closed form and autograd of the "
+          f"plain forward (bound 1e-5·max(1,|ref|)); under a saved-tensor hook with the "
+          f"forward's experts overwritten {hooked:.3e}")
+    return worst
 
 
-def k1_times(device: torch.device) -> dict:
-    """K1's forward (``poe_subsets_cuda``, no gradient) and its plain
-    version timed at M = 3, B ∈ {128, 256}, D = 64: {B: (kernel ms, plain
-    ms)}, CUDA-event medians of 100 calls."""
-    times = {}
+def k1_device_us(device: torch.device, card_line: str) -> dict:
+    """Device µs of K1's power-set kernels (M = 3, D = 64, no prior, the
+    experts separate as the model passes them) at each B of
+    K1_TIMED_BATCHES, from the profiler (``device_us``: mean of 5 calls;
+    CUDA events where no session recorded the kernel, named):
+    {B: (fwd µs, bwd µs)}."""
     mask = F.subset_mask_matrix(NAMES)
-    for b in (128, 256):
-        mus = torch.randn((3, b, 64), device=device)
-        lvs = torch.randn((3, b, 64), device=device)
-        k_ms = cuda_ms(lambda: cuda_fusion.poe_subsets_cuda(mus, lvs, mask))
-        p_ms = cuda_ms(lambda: F.poe_subsets(mus, lvs, mask))
-        times[b] = (k_ms, p_ms)
-        print(f"K1 time M=3 B={b} D=64: kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us "
-              "(median of 100 calls, CUDA events)")
+    rng = np.random.default_rng(2)
+    table, by_events = {}, []
+    for b in K1_TIMED_BATCHES:
+        mus, lvs, _ = k1_experts(k1_values(rng, 3, b, 64, device), "separate")
+        dmu_s, dlv_s = k1_values(rng, 7, b, 64, device)
+        times = []
+        for name, fn in (
+                ("poe_subsets_f32", lambda: cuda_fusion.poe_subsets_cuda(mus, lvs, mask)),
+                ("poe_subsets_bwd_f32", lambda: cuda_fusion.poe_subsets_bwd_cuda(
+                    mus, lvs, dmu_s, dlv_s, mask))):
+            t, how = device_us(fn, K1_GLOBALS[name])
+            times.append(t)
+            if how != "profiled":
+                by_events.append((name, b))
+        table[b] = tuple(times)
+    print("K1 device µs fwd / bwd, M=3 D=64, 1 element a thread, 128 threads a block: "
+          + ", ".join(f"B={b} {f:.2f} / {w:.2f}" for b, (f, w) in table.items())
+          + f" (profiled, mean of 5) [{card_line}]"
+          + (f"; by CUDA events, not profiled: {by_events}" if by_events else ""))
+    return table
+
+
+def k1_times(device: torch.device, card_line: str) -> dict:
+    """K1's kernels at the module's choice (M = 3, D = 64, no prior, the
+    experts separate) against the plain versions at each B of
+    K1_TIMED_BATCHES, CUDA-event medians of 100 calls (host dispatch
+    included): the forward without a gradient, and the backward kernel
+    alone against the closed-form plain backward. {name: {B: (kernel ms,
+    plain ms)}}."""
+    mask = F.subset_mask_matrix(NAMES)
+    rng = np.random.default_rng(3)
+    times = {name: {} for name in K1_GLOBALS}
+    for b in K1_TIMED_BATCHES:
+        values = k1_values(rng, 3, b, 64, device)
+        mus, lvs, _ = k1_experts(values, "separate")
+        up = k1_values(rng, 7, b, 64, device)
+        times["poe_subsets_f32"][b] = (
+            cuda_ms(lambda: cuda_fusion.poe_subsets_cuda(mus, lvs, mask)),
+            cuda_ms(lambda: F.poe_subsets(mus, lvs, mask)))
+        times["poe_subsets_bwd_f32"][b] = (
+            cuda_ms(lambda: cuda_fusion.poe_subsets_bwd_cuda(mus, lvs, *up, mask)),
+            cuda_ms(lambda: F.poe_subsets_bwd(mus, lvs, *up, mask)))
+    for name, by_b in times.items():
+        print(f"K1 {name} time M=3 D=64: "
+              + ", ".join(f"B={b} kernel {k * 1e3:.2f} us, plain {p * 1e3:.2f} us"
+                          for b, (k, p) in by_b.items())
+              + f" (median of 100 calls, CUDA events) [{card_line}]")
     return times
 
 
 def k1_host_us(device: torch.device, calls: int = 1000) -> dict:
     """The host's µs per call of each piece of one ``poe_subsets_cuda`` call
-    at M = 3, B = 128, D = 64, and of the whole call without and with a
-    gradient to record: ``time.perf_counter`` over ``calls`` back-to-back
-    calls of each (after 10 more), ending in a synchronize."""
+    at M = 3, B = 128, D = 64 (the experts separate, as the model passes
+    them), and of the whole call: without and with a gradient to record,
+    on a stacked pair, and after stacking the experts as the model did
+    before it read them in place. ``time.perf_counter`` over ``calls``
+    back-to-back calls of each (after 10 more), ending in a synchronize."""
     mask = F.subset_mask_matrix(NAMES)
-    mus, lvs = torch.randn((3, 128, 64), device=device), torch.randn((3, 128, 64), device=device)
-    mus_g, lvs_g = mus.clone().requires_grad_(), lvs.clone().requires_grad_()
-    mu_out, lv_out = torch.empty((7, 128, 64), device=device), torch.empty((7, 128, 64), device=device)
-    masks = cuda_fusion._masks(mask, 3)
+    stacked = k1_values(np.random.default_rng(4), 3, 128, 64, device)
+    mus, lvs, _ = k1_experts(stacked, "separate")
+    g_mus, g_lvs, _ = k1_experts(stacked, "separate", grad=True)
+    call = cuda_fusion._call(mus, lvs, mask, False)
+    mu_out, lv_out = (torch.empty((7, 128, 64), device=device) for _ in range(2))
     lib = _build.load_library()
-    stream = torch.cuda.current_stream().cuda_stream
-    ptrs = (mus.data_ptr(), lvs.data_ptr(), mu_out.data_ptr(), lv_out.data_ptr())
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    args = (call.experts, mu_out.data_ptr(), lv_out.data_ptr(), 3, 128, 64, None, 0, 0.0,
+            stream)
 
     def enter_device():
         with torch.cuda.device(device):
             pass
 
     pieces = {
-        "_check": lambda: cuda_fusion._check("mus", mus),
-        "_masks (built)": lambda: cuda_fusion._masks(mask, 3),
-        "new_empty": lambda: mus.new_empty((7, 128, 64)),
+        "checks + Experts": lambda: cuda_fusion._sequence_pointers(mus, lvs),
+        "kernel_layout (cached)": lambda: cuda_fusion.kernel_layout(mask, 3),
+        "torch.empty": lambda: torch.empty((7, 128, 64), device=device),
         "torch.cuda.device": enter_device,
-        "current_stream": lambda: torch.cuda.current_stream().cuda_stream,
-        "ctypes call": lambda: lib.poe_subsets_f32(*ptrs, 3, 128, 64, masks, 0.0, stream),
-        "Function.apply": lambda: cuda_fusion._PoeSubsets.apply(mus, lvs, masks, 0.0),
+        "torch.cuda.current_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "raw stream (the launch's)": lambda: torch._C._cuda_getCurrentRawStream(
+            torch._C._cuda_getDevice()),
+        "ctypes call": lambda: lib.poe_subsets_f32(*args),
+        "Function.apply": lambda: cuda_fusion._PoeSubsets.apply(call, *mus, *lvs),
         "poe_subsets_cuda": lambda: cuda_fusion.poe_subsets_cuda(mus, lvs, mask),
-        "poe_subsets_cuda (grad)": lambda: cuda_fusion.poe_subsets_cuda(mus_g, lvs_g, mask),
+        "poe_subsets_cuda (grad)": lambda: cuda_fusion.poe_subsets_cuda(g_mus, g_lvs, mask),
+        "poe_subsets_cuda (stacked pair)": lambda: cuda_fusion.poe_subsets_cuda(*stacked, mask),
+        "torch.stack x2 + poe_subsets_cuda (stacked pair)": lambda: cuda_fusion.poe_subsets_cuda(
+            torch.stack(mus), torch.stack(lvs), mask),
     }
     out = {}
     for name, fn in pieces.items():
@@ -399,55 +609,41 @@ def k1_host_us(device: torch.device, calls: int = 1000) -> dict:
             fn()
         torch.cuda.synchronize()
         out[name] = (time.perf_counter() - t0) / calls * 1e6
-    print("K1 host µs per call, M=3 B=128 D=64 (perf_counter over 1000 calls): "
-          + ", ".join(f"{n} {t:.2f}" for n, t in out.items()))
+    print("K1 host µs per call, M=3 B=128 D=64, experts separate (perf_counter over 1000 "
+          "calls): " + ", ".join(f"{n} {t:.2f}" for n, t in out.items()))
     return out
 
 
-def k1_bwd_against_plain(device: torch.device) -> dict:
-    """K1's backward kernel against the closed-form plain backward and
-    against autograd of the plain forward, then both timed at B = 256."""
-    rng = np.random.default_rng(1)
-    worst = 0.0
-    for m in (1, 2, 3):
-        mask = F.subset_mask_matrix(NAMES[:m])
-        s = mask.shape[0]
-        for b in (1, 5, 256):
-            arr = lambda *shape: torch.from_numpy(  # noqa: E731
-                rng.normal(size=shape).astype(np.float32)).to(device)
-            mus, lvs, dmu_s, dlv_s = arr(m, b, 64), arr(m, b, 64), arr(s, b, 64), arr(s, b, 64)
-            for prior in (False, True):
-                x = (mus.clone().requires_grad_(), lvs.clone().requires_grad_())
-                out = cuda_fusion.poe_subsets_cuda(*x, mask, prior_expert=prior)
-                got = torch.autograd.grad(out, x, (dmu_s, dlv_s))
-                plain = F.poe_subsets_bwd(mus, lvs, dmu_s, dlv_s, mask, prior_expert=prior)
-                y = (mus.clone().requires_grad_(), lvs.clone().requires_grad_())
-                auto = torch.autograd.grad(F.poe_subsets(*y, mask, prior_expert=prior), y,
-                                           (dmu_s, dlv_s))
-                torch.cuda.synchronize()
-                for ref_name, ref in (("plain", plain), ("autograd", auto)):
-                    for g, r, what in zip(got, ref, ("dmu", "dlogvar")):
-                        err = (g - r).abs()
-                        check(bool((err <= 1e-5 * torch.clamp(r.abs(), min=1.0)).all()),
-                              f"K1 bwd {what} vs {ref_name} M={m} B={b} prior={prior}: "
-                              f"max |Δ| {err.max().item():.3e}")
-                        worst = max(worst, err.max().item())
-    print(f"K1 bwd vs plain and autograd: max |Δ| {worst:.3e} over M∈{{1,2,3}}, "
-          "B∈{1,5,256}, D=64, prior both ways (bound 1e-5·max(1,|ref|))")
-
+def k1_entries(device: torch.device, card_line: str) -> dict:
+    """Phase 3's K1: the checks, the device times, the times and the
+    host's µs; the kernels line's entries (time, plain time and bound at
+    B = 256, the flagship's batch; the device µs and the CUDA-event times
+    at each B beside them)."""
+    worst = k1_against_plain(device)
+    device_times = k1_device_us(device, card_line)
+    times = k1_times(device, card_line)
+    host = k1_host_us(device)
     mask = F.subset_mask_matrix(NAMES)
-    masks = cuda_fusion._masks(mask, 3)
-    mus, lvs = torch.randn((3, 256, 64), device=device), torch.randn((3, 256, 64), device=device)
-    dmu_s, dlv_s = torch.randn((7, 256, 64), device=device), torch.randn((7, 256, 64), device=device)
-    k_ms = cuda_ms(lambda: cuda_fusion.poe_subsets_bwd_cuda(mus, lvs, dmu_s, dlv_s, masks, 0.0))
-    p_ms = cuda_ms(lambda: F.poe_subsets_bwd(mus, lvs, dmu_s, dlv_s, mask))
-    print(f"K1 bwd time M=3 B=256 D=64: kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us "
-          "(median of 100 calls, CUDA events)")
-    # the forward's operations recomputed, and about as many again for the VJP
-    ops = 2 * 256 * 64 * (3 * 3 + 2 * int(np.asarray(mask).sum()) + 3 * mask.shape[0])
-    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms,
-            **least_time(nbytes(mus, lvs, dmu_s, dlv_s, mus, lvs), ops, torch.float32),
-            "library_ms": None}
+    n_sub, members = mask.shape[0], int(np.asarray(mask).sum())
+    b, m, d = 256, 3, 64
+    # per (b, d): M precisions (exp, add, divide), per subset the member
+    # sums of T and mu·T, a divide and a log; the backward recomputes them
+    # and does about as many again
+    ops = b * d * (3 * m + 2 * members + 3 * n_sub)
+    fwd_bytes = (2 * m + 2 * n_sub) * b * d * 4
+    bwd_bytes = (2 * m + 2 * n_sub + 2 * m) * b * d * 4
+    out = {}
+    for name, err, moved, n_ops in (("poe_subsets_f32", worst["fwd"], fwd_bytes, ops),
+                                    ("poe_subsets_bwd_f32", worst["bwd"], bwd_bytes, 2 * ops)):
+        k_ms, p_ms = times[name][b]
+        col = 0 if name == "poe_subsets_f32" else 1
+        out[name] = {
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            **least_time(moved, n_ops, torch.float32), "library_ms": None,
+            "device_us": {bb: device_times[bb][col] for bb in K1_TIMED_BATCHES},
+            "ms_by_batch": {bb: times[name][bb][0] for bb in K1_TIMED_BATCHES}}
+    out["poe_subsets_f32"]["host_us"] = host
+    return out
 
 
 def k2_case(device, B, L, C, V, dtype, seed):
@@ -1447,6 +1643,65 @@ def device_idle_share(fn, calls: int = 3) -> str:
             + "; ".join(f"{name} {t / calls / 1e3:.4f} ms" for name, t in sorted(ours.items())))
 
 
+# the latent block around K1, which must not wait for the host
+LATENT_FILES = ("mopoe_mimic_tpu_torch/ops/fusion.py", "mopoe_mimic_tpu_torch/ops/cuda_fusion.py",
+                "mopoe_mimic_tpu_torch/models/mmvae.py")
+
+
+def sync_site(stack) -> str:
+    """Where a synchronizing operation arose: the innermost frame of
+    ``stack`` (``traceback.extract_stack``) in the port's package, else in
+    this repository, else the innermost, as "path:line (function)"."""
+    def where(frame):
+        try:
+            return Path(frame.filename).resolve().relative_to(ROOT).as_posix()
+        except ValueError:
+            return None
+
+    ours = [f for f in stack if (where(f) or "").startswith("mopoe_mimic_tpu_torch/")]
+    frame = (ours or [f for f in stack if where(f)] or list(stack))[-1]
+    return f"{where(frame) or frame.filename}:{frame.lineno} ({frame.name})"
+
+
+def synchronizing_ops(fn) -> dict:
+    """Each synchronizing CUDA operation that ``fn`` makes, as PyTorch's
+    sync debug mode reports it (``torch.cuda.set_sync_debug_mode("warn")``:
+    a warning per operation): {site (``sync_site``): count}. An operation
+    of the backward pass is reported where ``backward`` was called."""
+    import traceback
+    import warnings
+
+    sites = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            site = sync_site(traceback.extract_stack()[:-1])
+            sites[site] = sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
+def check_latent_block_syncs(run: dict) -> dict:
+    """One more train step of ``run`` under the sync debug mode: prints the
+    synchronizing operations and where they arose; fails if one arose in
+    the latent block around K1 (LATENT_FILES)."""
+    sites = synchronizing_ops(lambda: run["step"](run["state"], run["batch"]))
+    latent = {site: n for site, n in sites.items() if site.startswith(LATENT_FILES)}
+    print(f"synchronizing operations in one train step: {sum(sites.values())}"
+          + "".join(f"; {n} at {site}" for site, n in sorted(sites.items())))
+    check(not latent, f"the latent block synchronizes with the host: {latent}")
+    return sites
+
+
 def one_step_grads(cfg, sd, device, batch) -> tuple:
     """One train step, dropout off and eps = 0, from the weights ``sd``:
     (loss terms, {parameter: gradient on the CPU})."""
@@ -1559,16 +1814,19 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.load_library()
     print(f"build: {lib._name} in {time.perf_counter() - t0:.1f} s")
-    sass = kernel_resources(lib._name)
+    report = ptxas_report()
+    k1_regs = k1_resources(report)
+    sass = kernel_resources(lib._name, report)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results = {"poe_subsets_f32": k1_against_plain(device),
-               "poe_subsets_bwd_f32": k1_bwd_against_plain(device),
-               **k2_against_plain(device, card_line), **k3_against_plain(device),
+    results = {**k1_entries(device, card_line), **k2_against_plain(device, card_line),
+               **k3_against_plain(device),
                **k3_stats_against_plain(device, card_line)}
     for name in TENSOR_CORE_KERNELS:  # K2's entries are named by the function, K3's by kernel
         results[name if name in results else name.removesuffix("_tc")]["sass"] = sass[name]
+    for name, glob in K1_GLOBALS.items():
+        results[name]["ptxas"] = {k: v for k, v in k1_regs.items() if glob in k}
 
     flagship = MopoeConfig.from_json(str(FLAGSHIP))
     sd = random_state_dict(flagship)
@@ -1611,6 +1869,8 @@ def main() -> int:
               f"warm-up): {run['p50_ms']:.3f} ms, {run['samples_per_s']:.1f} samples/s "
               f"[{card_line}]")
         print(device_idle_share(lambda: run["step"](run["state"], run["batch"])))
+        if path == "train":
+            run["syncs"] = check_latent_block_syncs(run)
     turns = steps_in_turns(runs)
     print("p50 train step in turns (A B B A, 5 steps a turn, after the runs above): "
           + ", ".join(f"{p} {t:.3f} ms" for p, t in turns.items()) + f" [{card_line}]")

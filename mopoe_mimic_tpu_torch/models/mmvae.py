@@ -16,14 +16,19 @@ VAEtrimodalMimic.py). Semantics kept from the JAX module:
 
 The subset PoE goes through the hand-written CUDA kernels (forward and
 backward) when ``cfg.use_pallas_fusion`` is set and the posteriors are on
-a CUDA device, and through the plain PyTorch version otherwise
-(mmvae.py:184-193 of the JAX package). The posteriors are cast to float32
-before fusion. The power set and subset mask of each tuple of modalities
-are built once (``ops/fusion.subset_layout``), as is the kernel's view of
-the mask. ``cfg.fused_pointwise`` builds every residual block with the
-fused BN → ReLU → 1×1 conv (K3) for train mode (mmvae.py:83, 102, 119,
-134). Factorized (style) representations and the char text encoding are
-not ported yet.
+a CUDA device, which read the encoders' posteriors in place, and through
+the plain PyTorch version otherwise, which stacks them (mmvae.py:184-193
+of the JAX package). The posteriors are cast to float32 before fusion.
+What the JAX package fixes at trace time is built once here and nothing
+in ``inference`` waits for the host: the power set and subset mask of each
+tuple of modalities (``ops/fusion.subset_layout``) and the kernel's view
+of the mask; the subsets that enter the joint, a range of rows
+(``ops/fusion.passing_range``); the mixture's row index, on the device
+(``ops/fusion.mixture_component_selection``).
+``cfg.fused_pointwise`` builds every residual block with the fused BN →
+ReLU → 1×1 conv (K3) for train mode (mmvae.py:83, 102, 119, 134).
+Factorized (style) representations and the char text encoding are not
+ported yet.
 
 Layouts are PyTorch's: images NCHW, text ids [B, L], text output
 [B, L, vocab]. The session converts at its boundary.
@@ -109,37 +114,37 @@ class MMVae(nn.Module):
         method = cfg.method_enum
         present = tuple(m for m in cfg.modality_names if m in batch)
         content = self.encode(batch)
-        mus = torch.stack([content[m][0] for m in present])      # [M, B, D]
-        logvars = torch.stack([content[m][1] for m in present])  # [M, B, D]
         subsets, mask = F.subset_layout(present)
+        mus = [content[m][0] for m in present]      # M × [B, D]
+        logvars = [content[m][1] for m in present]  # M × [B, D]
 
         if method.uses_poe_fusion:
             prior = method is Method.POE
-            if cfg.use_pallas_fusion and mus.is_cuda:
+            if cfg.use_pallas_fusion and mus[0].is_cuda:  # K1 reads the posteriors in place
                 s_mu, s_lv = poe_subsets_cuda(mus, logvars, mask, prior_expert=prior)
             else:
                 s_mu, s_lv = F.poe_subsets(mus, logvars, mask, prior_expert=prior)
         else:  # moe / jsd: deterministic mixture within each subset
             per_subset = []
             for members in subsets.values():
-                idx = list(members)
-                if len(idx) == 1:
-                    per_subset.append((mus[idx[0]], logvars[idx[0]]))
+                if len(members) == 1:
+                    per_subset.append((mus[members[0]], logvars[members[0]]))
                 else:
                     per_subset.append(F.mixture_component_selection(
-                        mus[idx], logvars[idx], [1.0 / len(idx)] * len(idx)))
+                        torch.stack([mus[m] for m in members]),
+                        torch.stack([logvars[m] for m in members]),
+                        [1.0 / len(members)] * len(members)))
             s_mu = torch.stack([p[0] for p in per_subset])
             s_lv = torch.stack([p[1] for p in per_subset])
 
         distr_subsets = {key: (s_mu[i], s_lv[i]) for i, key in enumerate(subsets)}
 
-        if method in (Method.MOE, Method.JSD):
-            passing = [i for i, ms in enumerate(subsets.values()) if len(ms) == 1]
-        elif method is Method.POE:
-            passing = [i for i, ms in enumerate(subsets.values()) if len(ms) == len(present)]
-        else:  # joint_elbo (MoPoE)
-            passing = list(range(len(subsets)))
-        j_mus, j_lvs = s_mu[passing], s_lv[passing]
+        # the subsets that enter the joint: one range of rows (a view; the
+        # whole of s_mu under joint_elbo)
+        start, stop = F.passing_range(present, method)
+        j_mus, j_lvs = s_mu, s_lv
+        if (start, stop) != (0, len(subsets)):
+            j_mus, j_lvs = s_mu[start:stop], s_lv[start:stop]
         if method is Method.JSD:
             zeros = torch.zeros_like(j_mus[:1])
             j_mus = torch.cat([j_mus, zeros])

@@ -38,10 +38,20 @@ MAX_SUBSETS = 255
 
 
 class SubsetMasks(ctypes.Structure):
-    """Mirror of ``struct SubsetMasks`` in csrc/poe_subsets.cu (by value)."""
+    """Mirror of ``struct SubsetMasks`` in csrc/poe_subsets.cu (by pointer)."""
 
     _fields_ = [("n_subsets", ctypes.c_int),
                 ("members", ctypes.c_ubyte * MAX_SUBSETS)]
+
+
+class Experts(ctypes.Structure):
+    """Mirror of ``struct Experts`` in csrc/poe_subsets.cu (by pointer): each
+    expert's mu and logvar pointer and row stride (in floats)."""
+
+    _fields_ = [("mu", ctypes.c_void_p * MAX_EXPERTS),
+                ("lv", ctypes.c_void_p * MAX_EXPERTS),
+                ("mu_row", ctypes.c_longlong * MAX_EXPERTS),
+                ("lv_row", ctypes.c_longlong * MAX_EXPERTS)]
 
 
 def _nvcc() -> str:
@@ -125,11 +135,12 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's signature."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    experts, masks = ctypes.POINTER(Experts), ctypes.POINTER(SubsetMasks)
     signatures = {
-        # mus, lvs, mu_out, lv_out, M, B, D, masks, prior_t, stream
-        "poe_subsets_f32": [ptr] * 4 + [i32] * 3 + [SubsetMasks, ctypes.c_float, ptr],
-        # mus, lvs, dmu_s, dlv_s, dmu, dlv, M, B, D, masks, prior_t, stream
-        "poe_subsets_bwd_f32": [ptr] * 6 + [i32] * 3 + [SubsetMasks, ctypes.c_float, ptr],
+        # experts, mu_out, lv_out, M, B, D, masks (None: the power set), prior, prior_t, stream
+        "poe_subsets_f32": [experts] + [ptr] * 2 + [i32] * 3 + [masks, i32, f32, ptr],
+        # experts, dmu_s, dlv_s, dmu, dlv, M, B, D, masks, prior, prior_t, stream
+        "poe_subsets_bwd_f32": [experts] + [ptr] * 4 + [i32] * 3 + [masks, i32, f32, ptr],
         # h, W, b, targets, lp, lse, R, C, V, dtype, stream
         "texthead_fwd": [ptr] * 6 + [i32] * 4 + [ptr],
         # h, W, b, targets, lse, g, dh, R, C, V, dtype, stream
@@ -170,19 +181,28 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+_CURRENT = contextlib.nullcontext()
+
+
 def on_device(device):
     """``torch.cuda.device(device)`` where it is not the current device
     already; else nothing to enter (the context manager costs microseconds a
-    call)."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
+    call). The current device is read from the runtime directly, as
+    ``torch.cuda.current_device`` does after its initialisation check: the
+    tensors on ``device`` have initialised CUDA already."""
+    if device.index == torch._C._cuda_getDevice():
+        return _CURRENT
     return torch.cuda.device(device)
 
 
 def launch(counts: Dict[str, int], name: str, *args) -> None:
-    """Call the entry point ``name`` on the current stream, raise with its
-    cudaError if it returns one, else add one to ``counts[name]``."""
-    err = getattr(load_library(), name)(*args, torch.cuda.current_stream().cuda_stream)
+    """Call the entry point ``name`` on the current stream of the current
+    device, raise with its cudaError if it returns one, else add one to
+    ``counts[name]``. The stream is read as a raw pointer
+    (``torch.cuda.current_stream()`` builds a Python object each call, some
+    microseconds of host time)."""
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    err = getattr(load_library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     counts[name] += 1

@@ -7,6 +7,11 @@ precision sum. ``poe_subsets`` here is the plain PyTorch version of the
 subset-PoE kernel (``ops/cuda_fusion.py``): the path on the CPU and the
 kernel's oracle on the GPU. Summation order matches the JAX function and
 the Pallas kernel: prior first, then members in ascending index order.
+
+What the JAX package fixes at trace time is built here once per key: the
+mixture's row index on the device (``_selection_index``) and the range of
+subsets that enter the joint (``passing_range``), so that a repeated call
+copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -15,12 +20,15 @@ import functools
 import itertools
 import math
 from types import MappingProxyType
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 EPS = 1e-8
+
+# M unimodal posteriors: stacked [M, B, D], or a sequence of M [B, D]
+Experts = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
 def subset_powerset(mod_names: Sequence[str]) -> Dict[str, Tuple[int, ...]]:
@@ -65,6 +73,32 @@ def subset_members(subset_mask: np.ndarray) -> List[Tuple[int, ...]]:
     return [tuple(int(m) for m in np.nonzero(row)[0]) for row in mask]
 
 
+def passing_range(mod_names: Tuple[str, ...], method: str) -> Tuple[int, int]:
+    """The subsets that enter the joint mixture (mmvae.py:214-220 of the JAX
+    package), as rows [start, stop) of ``subset_layout(mod_names)``:
+    moe/jsd the singletons, poe the full set, joint_elbo every subset. In
+    ``subset_powerset`` order each is one contiguous range, which is
+    checked here, once per (names, method)."""
+    return _passing_range(tuple(mod_names), method)
+
+
+@functools.lru_cache(maxsize=64)
+def _passing_range(mod_names: Tuple[str, ...], method: str) -> Tuple[int, int]:
+    sizes = [len(members) for members in subset_layout(mod_names)[0].values()]
+    if method in ("moe", "jsd"):
+        passing = [i for i, n in enumerate(sizes) if n == 1]
+    elif method == "poe":
+        passing = [i for i, n in enumerate(sizes) if n == len(mod_names)]
+    elif method == "joint_elbo":
+        passing = list(range(len(sizes)))
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    start, stop = passing[0], passing[-1] + 1
+    if passing != list(range(start, stop)):
+        raise ValueError(f"{method} over {mod_names}: passing subsets {passing} are not one range")
+    return start, stop
+
+
 def prior_precision(prior_expert: bool, eps: float = EPS) -> float:
     """Precision of the N(0, I) expert, 1/(exp(0) + eps), or 0 without it."""
     return 1.0 / (1.0 + eps) if prior_expert else 0.0
@@ -79,19 +113,27 @@ def poe(mus: torch.Tensor, logvars: torch.Tensor, eps: float = EPS) -> Tuple[tor
     return pd_mu, torch.log(pd_var)
 
 
+def stacked(experts: Experts) -> torch.Tensor:
+    """The experts as one [M, B, D] tensor: a stacked tensor as it is, a
+    sequence of M [B, D] tensors stacked."""
+    return experts if isinstance(experts, torch.Tensor) else torch.stack(list(experts))
+
+
 def poe_subsets(
-    mus: torch.Tensor,
-    logvars: torch.Tensor,
+    mus: Experts,
+    logvars: Experts,
     subset_mask: np.ndarray,
     prior_expert: bool = False,
     eps: float = EPS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All subset PoE products at once.
 
-    mus, logvars: [M, B, D] stacked unimodal posteriors; subset_mask:
-    [S, M] constant 0/1. ``prior_expert`` adds a N(0, I) expert to every
-    product (method 'poe'). Returns mu, logvar of shape [S, B, D].
+    mus, logvars: the unimodal posteriors, stacked [M, B, D] or as M
+    tensors [B, D] (stacked here); subset_mask: [S, M] constant 0/1.
+    ``prior_expert`` adds a N(0, I) expert to every product (method 'poe').
+    Returns mu, logvar of shape [S, B, D].
     """
+    mus, logvars = stacked(mus), stacked(logvars)
     t = 1.0 / (torch.exp(logvars) + eps)
     mu_t = mus * t
     prior_t = prior_precision(prior_expert, eps)
@@ -110,8 +152,8 @@ def poe_subsets(
 
 
 def poe_subsets_bwd(
-    mus: torch.Tensor,
-    logvars: torch.Tensor,
+    mus: Experts,
+    logvars: Experts,
     dmu_s: torch.Tensor,
     dlv_s: torch.Tensor,
     subset_mask: np.ndarray,
@@ -129,9 +171,10 @@ def poe_subsets_bwd(
         dT_m  = Σ_S (dmu_S/T_S)·(mu_m − mu_S) − dlv_S/T_S
         dlv_m = −dT_m·exp(lv_m)·T_m²
 
-    mus, logvars: [M, B, D]; dmu_s, dlv_s: [S, B, D]. Returns dmu, dlv
-    of shape [M, B, D].
+    mus, logvars: [M, B, D] or M tensors [B, D] (stacked here); dmu_s,
+    dlv_s: [S, B, D]. Returns dmu, dlv of shape [M, B, D].
     """
+    mus, logvars = stacked(mus), stacked(logvars)
     var = torch.exp(logvars)
     t = 1.0 / (var + eps)
     mu_t = mus * t
@@ -182,6 +225,19 @@ def _partition_bounds(batch: int, weights: Sequence[float]) -> List[Tuple[int, i
     return bounds
 
 
+@functools.lru_cache(maxsize=64)
+def _selection_index(batch: int, weights: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """The rows that ``mixture_component_selection`` takes from the
+    flattened [K * B, D] inputs, c(b) * B + b for each row b: built once per
+    (B, weights, device) and shared, as the JAX package's trace-time
+    constant is. Built outside ``torch.inference_mode`` even when the first
+    call runs in it: autograd cannot save an inference tensor."""
+    rows = [k * batch + b for k, (s, e) in enumerate(_partition_bounds(batch, weights))
+            for b in range(s, e)]
+    with torch.inference_mode(False):
+        return torch.tensor(rows, device=device)
+
+
 def mixture_component_selection(
     mus: torch.Tensor,
     logvars: torch.Tensor,
@@ -189,12 +245,8 @@ def mixture_component_selection(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Deterministic MoE 'sampling': row b of the [K, B, D] inputs comes
     from component c(b), a static stratified partition of the batch axis
-    proportional to ``weights``. The partition depends on B, so a padded
-    batch selects differently from the unpadded one."""
-    batch = mus.shape[1]
-    comp = np.zeros((batch,), dtype=np.int64)
-    for k, (s, e) in enumerate(_partition_bounds(batch, weights)):
-        comp[s:e] = k
-    comp_t = torch.from_numpy(comp).to(mus.device)
-    rows = torch.arange(batch, device=mus.device)
-    return mus[comp_t, rows], logvars[comp_t, rows]
+    proportional to ``weights`` (``_partition_bounds``). The partition
+    depends on B, so a padded batch selects differently from the unpadded
+    one."""
+    index = _selection_index(mus.shape[1], tuple(weights), mus.device)
+    return mus.flatten(0, 1).index_select(0, index), logvars.flatten(0, 1).index_select(0, index)

@@ -10,9 +10,10 @@ they are absent; there, skip the repository's conftest (which loads jax):
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: K1 forward 1e-6·max(1, |ref|) (the same operations in the
-same order in float32, IEEE division, no fast-math; only exp/log rounding
-may differ); K1 backward 1e-5·max(1, |ref|) (FMA contraction in the
-kernel). K2 in float32 with TF32 off: lp rtol 1e-5 atol 1e-5, gradients
+same order in float32, IEEE division, no fast-math, no FMA contraction:
+bitwise equal on the card); K1 backward 1e-5·max(1, |ref|) (FMA
+contraction in the kernel); K1's experts separate, strided or stacked.
+K2 in float32 with TF32 off: lp rtol 1e-5 atol 1e-5, gradients
 rtol 1e-4 atol 1e-5 (tests/test_pallas_texthead.py's bounds), against the
 plain pair accumulated in float64; in bfloat16 against the plain pair fed
 the same bfloat16 inputs: lp and lse |Δ| ≤ 1e-5·max(1, |ref|) (the forward
@@ -32,6 +33,7 @@ buffers within rtol 1e-6, atol 1e-6·max|ref|, of the plain update.
 import numpy as np
 import pytest
 import torch
+import torch.utils.checkpoint
 
 import chip_smoke
 
@@ -101,34 +103,143 @@ def test_backward_kernel_matches_plain_and_autograd(device, m, b, prior):
             assert bool(((g - r).abs() <= bound).all()), float((g - r).abs().max())
 
 
-@pytest.mark.parametrize("grad", [False, True])
-def test_inference_launches_k1_once_a_call(device, grad, monkeypatch):
-    """MMVae.inference on the card: one poe_subsets_f32 launch a call, with
-    or without a gradient to record, and equal results every call (the
-    subset layout and the kernel's masks come from their caches)."""
-    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    cfg = MopoeConfig(method="joint_elbo", img_size=64, DIM_img=4, DIM_text=4, class_dim=4,
+@pytest.mark.parametrize("prior", [False, True])
+@pytest.mark.parametrize("form", chip_smoke.K1_FORMS)
+@pytest.mark.parametrize("d", chip_smoke.K1_DIMS)
+@pytest.mark.parametrize("b", [1, 5, 256])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_k1_matches_plain_for_every_form_of_experts(device, m, b, d, form, prior):
+    """The power-set kernels, forward and backward, on experts given as
+    separate tensors, strided views and a stacked pair
+    (``chip_smoke.k1_case``: its bounds and checks)."""
+    rng = np.random.default_rng(1000 + 10 * m + b + d)
+    mask = F.subset_mask_matrix(NAMES[:m])
+    values = chip_smoke.k1_values(rng, m, b, d, device)
+    got = chip_smoke.k1_case(values, mask, prior, form,
+                             chip_smoke.k1_values(rng, mask.shape[0], b, d, device))
+    assert got["bitwise"]  # the forward rounds as the plain version does
+
+
+@pytest.mark.parametrize("form", chip_smoke.K1_FORMS)
+def test_k1_backward_reads_the_experts_autograd_gives_back(device, form):
+    """Under a saved-tensor hook the backward gets new tensors: it reads
+    those, not the forward's experts, which are overwritten by NaN
+    (``chip_smoke.k1_saved_hook_case``)."""
+    rng = np.random.default_rng(7)
+    chip_smoke.k1_saved_hook_case(chip_smoke.k1_values(rng, 3, 8, 64, device),
+                                  F.subset_mask_matrix(NAMES), form,
+                                  chip_smoke.k1_values(rng, 7, 8, 64, device))
+
+
+def test_k1_under_non_reentrant_checkpoint(device):
+    """K1 inside ``torch.utils.checkpoint`` (non-reentrant): the gradients
+    of the recomputed forward equal those of a plain call, bitwise."""
+    rng = np.random.default_rng(8)
+    values = chip_smoke.k1_values(rng, 3, 32, 64, device)
+    up = chip_smoke.k1_values(rng, 7, 32, 64, device)
+    mask = F.subset_mask_matrix(NAMES)
+    grads = []
+    for checkpointed in (False, True):
+        mus, lvs, leaves = chip_smoke.k1_experts(values, "separate", grad=True)
+
+        def fused(*xs):
+            return cuda_fusion.poe_subsets_cuda(xs[:3], xs[3:], mask)
+
+        out = (torch.utils.checkpoint.checkpoint(fused, *leaves, use_reentrant=False)
+               if checkpointed else fused(*leaves))
+        grads.append(torch.autograd.grad(out, leaves, up))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.parametrize("mask_index", range(4))
+def test_k1_generic_layouts_match_plain(device, mask_index):
+    mask = chip_smoke.k1_generic_masks()[mask_index]
+    m = mask.shape[1]
+    assert cuda_fusion.kernel_layout(mask, m).masks is not None
+    rng = np.random.default_rng(mask_index)
+    for form in ("separate", "stacked"):
+        values = chip_smoke.k1_values(rng, m, 37, 64, device)
+        chip_smoke.k1_case(values, mask, True, form,
+                           chip_smoke.k1_values(rng, mask.shape[0], 37, 64, device))
+
+
+def _inference_case(device, method="joint_elbo"):
+    cfg = MopoeConfig(method=method, img_size=64, DIM_img=4, DIM_text=4, class_dim=4,
                       text_encoding="word", vocab_size=30, batch_size=4,
                       compute_dtype="float32")
     torch.manual_seed(0)
-    model = MMVae(cfg).to(device).eval()
+    model = MMVae(cfg).to(device)
     rng = np.random.default_rng(0)
     batch = {"PA": rng.random((4, 1, 64, 64), dtype=np.float32),
              "Lateral": rng.random((4, 1, 64, 64), dtype=np.float32),
              "text": rng.integers(0, 30, (4, 128))}
-    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    return cfg, model, {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_inference_launches_k1_once_a_call(device, grad, monkeypatch):
+    """MMVae.inference on the card: one poe_subsets_f32 launch a call, with
+    or without a gradient to record, and one poe_subsets_bwd_f32 launch a
+    backward; equal results every call (the subset layout and the kernel's
+    masks come from their caches)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg, model, batch = _inference_case(device)
+    model.eval()
     outs = []
     for _ in range(3):
-        before = cuda_fusion.LAUNCHES["poe_subsets_f32"]
+        before = dict(cuda_fusion.LAUNCHES)
         with torch.set_grad_enabled(grad):
             outs.append(model.inference(batch))
-        assert cuda_fusion.LAUNCHES["poe_subsets_f32"] == before + 1
+        assert cuda_fusion.LAUNCHES["poe_subsets_f32"] == before["poe_subsets_f32"] + 1
+        if grad:
+            out = outs[-1]
+            loss = sum(mu.sum() + lv.sum() for mu, lv in out["subsets"].values())
+            (loss + out["joint"][0].sum()).backward()
+        assert cuda_fusion.LAUNCHES["poe_subsets_bwd_f32"] == before["poe_subsets_bwd_f32"] + grad
     assert list(outs[0]["subsets"]) == list(F.subset_powerset(cfg.modality_names))
     for out in outs[1:]:
         for key, (mu, lv) in outs[0]["subsets"].items():
             assert torch.equal(out["subsets"][key][0], mu)
             assert torch.equal(out["subsets"][key][1], lv)
         assert all(torch.equal(a, b) for a, b in zip(out["joint"], outs[0]["joint"]))
+
+
+@pytest.mark.parametrize("method", ["joint_elbo", "poe", "moe", "jsd"])
+def test_inference_and_backward_do_not_synchronize(device, method):
+    """MMVae.inference in train mode and its backward, after a first call
+    (which builds the cached indices), raise nothing under PyTorch's sync
+    debug mode "error": the latent block never waits for the host."""
+    _, model, batch = _inference_case(device, method)
+    model.train()
+    model.inference(batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = model.inference(batch)
+        loss = sum(mu.sum() + lv.sum() for mu, lv in out["subsets"].values())
+        (loss + out["joint"][0].sum() + out["mus"].sum()).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_k1_launch_failure_raises(device, monkeypatch):
+    """A launch the kernels refuse raises; nothing falls back to the plain
+    version: the power-set layout asked of 4 experts (the kernels are built
+    for M <= 3), forward and backward."""
+    values = chip_smoke.k1_values(np.random.default_rng(0), 3, 8, 64, device)
+    mask = F.subset_mask_matrix(NAMES)
+    mus, lvs, _ = chip_smoke.k1_experts(values, "separate")
+    up = chip_smoke.k1_values(np.random.default_rng(1), 7, 8, 64, device)
+    call = cuda_fusion._call
+    monkeypatch.setattr(cuda_fusion, "_call",
+                        lambda *args: call(*args)._replace(n_experts=4))
+    before = dict(cuda_fusion.LAUNCHES)
+    with pytest.raises(RuntimeError, match="poe_subsets_f32 launch failed"):
+        cuda_fusion.poe_subsets_cuda(mus, lvs, mask)
+    with pytest.raises(RuntimeError, match="poe_subsets_bwd_f32 launch failed"):
+        cuda_fusion.poe_subsets_bwd_cuda(mus, lvs, *up, mask)
+    assert cuda_fusion.LAUNCHES == before  # a refused launch is not counted
 
 
 def test_kernel_refuses_what_it_does_not_take(device):
