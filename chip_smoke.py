@@ -116,13 +116,38 @@ any failure of which exits non-zero:
      tensors that are ill-conditioned at init: ``gpu_step_against_cpu``);
      then the same with ``fused_pointwise=True`` (K3's own accuracy is
      judged by phase 3), which launches K3's float32 kernels and the
-     statistics and none of its bfloat16 ones.
+     statistics and none of its bfloat16 ones;
+  9. the epoch path, training A's main path: a ``SyntheticMimic`` of 16384
+     rows (seed 0) in a ``DeviceStore`` on the card (its bytes, the growth
+     of the allocated memory, a gathered batch bit for bit against the
+     host's columns); 8 graphed steps (``make_train_epoch``, one row an
+     epoch) against 8 eager ``make_train_step`` steps on the same
+     ``epoch_index_matrix`` rows, from the same weights and generator state
+     at flagship width, batch 8, float32, TF32 off, dropout 0: every loss
+     term within rtol 1e-5 at every step, the parameters after within 1e-5
+     relative L2, the generators' states equal and new after every step,
+     and whether the two are bitwise equal; then training A through the
+     graphed epoch: 13 steps (its capture included), every epoch mean
+     finite, parameters and BN running statistics changed, K1 and K2
+     launched by their wrappers and K3 not; a trace of 3 replays with K1
+     forward and backward and K2's four kernels once a step and no K3
+     kernel; a 3-step epoch under the sync debug mode with one
+     synchronising operation, its read of the means; the graphed epoch and
+     the eager store-fed loop in turns (G E E G, 20 steps a turn): ms a
+     step from CUDA events, samples/s, and from a 3-step profile of each
+     the device busy time, idle share and device ops a step; the gather's
+     device time; then training B (``fused_pointwise`` too) the same way,
+     each bf16 K3 kernel 32 times a replayed step and the float32 ones
+     never. Last, an objective that waits for the host makes
+     ``make_train_epoch`` raise (no eager fallback), the state unchanged.
 
+Phase 9's numbers are printed as one JSON line ``{"epoch_training": ...}``.
 The last lines are a JSON object of the kernels (each with its launches on
-its path, error, time, plain time, the least time the card could take for
-its bytes, operations and exponentials, and the time of a single PyTorch
-call computing the same function where one exists), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+its path, a replayed step's launches from phase 9's trace, error, time,
+plain time, the least time the card could take for its bytes, operations
+and exponentials, and the time of a single PyTorch call computing the same
+function where one exists), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -146,7 +171,10 @@ from mopoe_mimic_tpu_torch.ops import _build, cuda_fusion, cuda_pointwise, cuda_
 from mopoe_mimic_tpu_torch.ops import fusion as F
 from mopoe_mimic_tpu_torch.ops import pointwise as PW
 from mopoe_mimic_tpu_torch.ops import texthead as TH
+from mopoe_mimic_tpu_torch.data.device_store import DeviceStore
+from mopoe_mimic_tpu_torch.data.synthetic import SyntheticMimic
 from mopoe_mimic_tpu_torch.serve import InferenceSession
+from mopoe_mimic_tpu_torch.train.scan import epoch_index_matrix, make_train_epoch
 from mopoe_mimic_tpu_torch.train.state import create_train_state
 from mopoe_mimic_tpu_torch.train.step import loss_terms, make_train_step
 
@@ -1595,11 +1623,13 @@ def kernel_name(event_name: str) -> str:
     return fn.group(1) if fn else event_name
 
 
-def device_idle_share(fn, calls: int = 3) -> str:
-    """Device busy time (union of the kernel and copy intervals that
-    ``torch.profiler`` records on the card) against the wall time of
-    ``calls`` calls under the profiler, and the device ops that take the
-    most time."""
+def device_profile(fn, steps: int = 3) -> dict:
+    """``torch.profiler`` over one call of ``fn``, which runs ``steps``
+    steps and ends in a synchronize (after one unprofiled call): per step,
+    the wall time, the device busy time (union of the kernel and copy
+    intervals recorded on the card), the device ops, and the device time by
+    op name; the device's idle share of the wall. ``busy_ms`` is None where
+    the profiler recorded no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1607,19 +1637,19 @@ def device_idle_share(fn, calls: int = 3) -> str:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                      and not getattr(e, "is_user_annotation", False)]
     spans = sorted((e.time_range.start, e.time_range.end) for e in device_events)
+    out = {"wall_ms": wall_us / steps / 1e3, "busy_ms": None, "idle_pct": None,
+           "ops": len(spans) / steps, "by_name_ms": {}}
     if not spans:
-        return "device idle share: not measured (the profiler recorded no device events)"
+        return out
     by_name = {}
     for e in device_events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     busy, cur_start, cur_end = 0.0, *spans[0]
     for start, end in spans[1:]:
         if start > cur_end:
@@ -1628,19 +1658,36 @@ def device_idle_share(fn, calls: int = 3) -> str:
         else:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
-    # the port's own kernels, by the name of their __global__ function
-    ours = {}
-    for name, t in by_name.items():
-        fn = kernel_name(name)
-        if fn.startswith(("texthead_", "poe_subsets", "pointwise_")):
-            ours[fn] = ours.get(fn, 0.0) + t
-    return (f"device idle share over {calls} calls (profiled): wall {wall_us / calls / 1e3:.3f} ms"
-            f"/call, device busy {busy / calls / 1e3:.3f} ms/call, idle "
-            f"{100.0 * (1.0 - busy / wall_us):.1f}%, {len(spans) // calls} device ops/call; "
+    out.update(busy_ms=busy / steps / 1e3, idle_pct=100.0 * (1.0 - busy / wall_us),
+               by_name_ms={name: t / steps / 1e3 for name, t in by_name.items()})
+    return out
+
+
+def device_idle_share(fn, calls: int = 3) -> str:
+    """``device_profile`` of ``calls`` calls of ``fn`` as a line: wall and
+    device busy per call, the idle share, device ops per call, the device
+    ops that take the most time and the port's own kernels."""
+    def run():
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+
+    prof = device_profile(run, calls)
+    if prof["busy_ms"] is None:
+        return "device idle share: not measured (the profiler recorded no device events)"
+    top = sorted(prof["by_name_ms"].items(), key=lambda kv: -kv[1])[:8]
+    ours = {}  # the port's own kernels, by the name of their __global__ function
+    for name, t in prof["by_name_ms"].items():
+        fn_name = kernel_name(name)
+        if fn_name.startswith(("texthead_", "poe_subsets", "pointwise_")):
+            ours[fn_name] = ours.get(fn_name, 0.0) + t
+    return (f"device idle share over {calls} calls (profiled): wall {prof['wall_ms']:.3f} ms"
+            f"/call, device busy {prof['busy_ms']:.3f} ms/call, idle "
+            f"{prof['idle_pct']:.1f}%, {int(prof['ops'])} device ops/call; "
             "top device time per call: "
-            + "; ".join(f"{name[:60]} {t / calls / 1e3:.3f} ms" for name, t in top)
+            + "; ".join(f"{name[:60]} {t:.3f} ms" for name, t in top)
             + "; the port's kernels per call: "
-            + "; ".join(f"{name} {t / calls / 1e3:.4f} ms" for name, t in sorted(ours.items())))
+            + "; ".join(f"{name} {t:.4f} ms" for name, t in sorted(ours.items())))
 
 
 # the latent block around K1, which must not wait for the host
@@ -1777,22 +1824,323 @@ def gpu_step_against_cpu(cfg, device, kernels=K12, n: int = 8) -> dict:
     return l2
 
 
+# ---------------------------------------------------------------------------
+# the epoch path: the card-resident store and the graphed epoch
+# ---------------------------------------------------------------------------
+
+EPOCH_ROWS = 16384  # rows of the phase's SyntheticMimic (seed 0)
+EPOCH_PARITY_STEPS = 8  # graphed against eager steps, batch 8, float32
+EPOCH_TIMED_STEPS = 20  # steps a turn of the timing (G E E G)
+# the __global__ function each kernel of training A and B launches, as the
+# trace of a replay names it
+REPLAYED = {"poe_subsets_f32": "poe_subsets_f32_kernel",
+            "poe_subsets_bwd_f32": "poe_subsets_bwd_f32_kernel",
+            "texthead_fwd": "texthead_fwd_tc", "texthead_bwd_dh": "texthead_bwd_dh_tc",
+            "texthead_bwd_dw": "texthead_bwd_dw_tc",
+            "texthead_bwd_dw_finalize": "texthead_bwd_dw_finalize_kernel",
+            # training B's bfloat16 K3 kernels
+            "pointwise_stats": "pointwise_stats_kernel",
+            "pointwise_stats_finalize": "pointwise_stats_finalize_kernel",
+            "pointwise_fwd_tc": "pointwise_fwd_tc",
+            "pointwise_bwd_reduce_tc": "pointwise_bwd_reduce_tc",
+            "pointwise_bwd_finalize": "pointwise_bwd_finalize_kernel",
+            "pointwise_bwd_dx_tc": "pointwise_bwd_dx_tc"}
+
+
+def epoch_store(cfg, device, rows: int = EPOCH_ROWS) -> tuple:
+    """A ``SyntheticMimic`` of ``rows`` rows (seed 0) in a ``DeviceStore``:
+    (store, its report: bytes, growth of the card's allocated memory, and a
+    gathered batch checked against the host's columns: images equal to the
+    quantised rows times float32(1/255) bit for bit, text ids equal)."""
+    allocated = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    t0 = time.perf_counter()
+    dataset = SyntheticMimic(cfg, seed=0, length=rows)
+    store = DeviceStore(dataset, cfg, device=device)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    grown = (torch.cuda.memory_allocated(device) - allocated) if device.type == "cuda" else 0
+    idx = np.random.default_rng(1).integers(0, rows, 64).astype(np.int32)
+    batch = store.gather(idx)
+    for k in ("PA", "Lateral"):
+        u8 = np.round(np.clip(dataset.arrays[k][idx], 0.0, 1.0) * 255.0).astype(np.uint8)
+        ref = u8.transpose(0, 3, 1, 2).astype(np.float32) * np.float32(1 / 255)
+        check(batch[k].cpu().numpy().tobytes() == ref.tobytes(), f"store gather {k} differs")
+    check(np.array_equal(batch["text"].cpu().numpy(), dataset.arrays["text"][idx]),
+          "store gather text differs")
+    expected = rows * (2 * cfg.img_size ** 2 * cfg.image_channels + 4 * cfg.len_sequence)
+    check(store.nbytes == expected, f"store holds {store.nbytes} B, not {expected}")
+    return store, {"rows": rows, "bytes": store.nbytes, "allocated_bytes": grown,
+                   "build_s": seconds}
+
+
+def _zero_dropout(state) -> None:
+    for mod in state.model.modules():
+        if isinstance(mod, (torch.nn.Dropout, torch.nn.Dropout2d)):
+            mod.p = 0.0
+
+
+def epoch_parity(cfg, store, device, steps: int = EPOCH_PARITY_STEPS, n: int = 8) -> dict:
+    """``steps`` graphed steps (``make_train_epoch``, one row an epoch, so
+    each step's terms are read) against as many eager ``make_train_step``
+    steps on the same ``epoch_index_matrix`` rows, from the same weights and
+    generator state, batch ``n``, float32, dropout 0: every loss term within
+    rtol 1e-5 at every step, the parameters after within 1e-5 relative L2;
+    the generators' states equal after every step and changed by every
+    step (each replay draws new noise, the eager step's). Prints whether
+    the two runs are bitwise equal."""
+    cfg = cfg.replace(batch_size=n, compute_dtype="float32")
+    sd = create_train_state(cfg, device, seed=0).model.state_dict()
+    graphed, eager = (create_train_state(cfg, device, state_dict=sd, seed=5) for _ in range(2))
+    for state in (graphed, eager):
+        _zero_dropout(state)
+    train_epoch, train_step = make_train_epoch(cfg, store), make_train_step(cfg)
+    rows = epoch_index_matrix(store, 0, n, steps_cap=steps)
+    check(len(rows) == steps, f"{len(rows)} rows, not {steps}")
+    worst, bitwise, seen = 0.0, True, set()
+    for i, row in enumerate(rows):
+        _, means = train_epoch(graphed, row[None])
+        ref = {k: float(v) for k, v in loss_terms(train_step(eager, store.gather(row))).items()}
+        got = {k: float(v) for k, v in loss_terms(means).items()}
+        check(got.keys() == ref.keys(), f"graphed step {i}: terms {sorted(got)}")
+        for k, r in ref.items():
+            check(np.isfinite(r) and abs(got[k] - r) <= 1e-5 * abs(r),
+                  f"graphed vs eager step {i} {k}: {got[k]!r} vs {r!r}")
+            worst = max(worst, abs(got[k] - r) / abs(r))
+            bitwise &= got[k] == r
+        g_state = graphed.generator.get_state()
+        check(torch.equal(g_state, eager.generator.get_state()),
+              f"step {i}: the graphed generator's state is not the eager one's")
+        check(bytes(g_state.numpy()) not in seen, f"step {i}: the replay drew no new noise")
+        seen.add(bytes(g_state.numpy()))
+    check(graphed.step == eager.step == steps, f"steps {graphed.step} / {eager.step}")
+    params = [k for k, _ in graphed.model.named_parameters()]
+    got_sd, ref_sd = graphed.model.state_dict(), eager.model.state_dict()
+    flat = lambda d: torch.cat([d[k].double().flatten() for k in params])  # noqa: E731
+    l2 = float((flat(got_sd) - flat(ref_sd)).norm() / flat(ref_sd).norm())
+    check(l2 <= 1e-5, f"graphed vs eager parameters: relative L2 {l2:.3e}")
+    bitwise &= all(torch.equal(got_sd[k], ref_sd[k]) for k in got_sd)
+    print(f"graphed epoch vs eager steps ({cfg.img_size} px, DIM {cfg.DIM_img}, batch {n}, "
+          f"float32, TF32 off, dropout 0, {steps} steps): loss terms max rel |Δ| {worst:.3e} (bound 1e-5), parameters rel "
+          f"L2 {l2:.3e} (bound 1e-5), bitwise equal: {bitwise}; the generators' states equal "
+          "after every step, new at every step")
+    return {"steps": steps, "batch": n, "terms_max_rel": worst, "params_rel_l2": l2,
+            "bitwise": bitwise}
+
+
+def replay_kernel_counts(fn, steps: int, expect=(), attempts: int = 4) -> dict:
+    """{__global__ function: launches a step} from a ``torch.profiler``
+    trace of ``fn`` (``steps`` steps a call), for the port's kernels; the
+    profiler now and then drops a session's kernels, so sessions are taken
+    until one records each kernel of ``expect`` a whole number of times a
+    step (up to ``attempts``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = kernel_name(e.name)
+                if name.startswith(("texthead_", "poe_subsets", "pointwise_")):
+                    counts[name] = counts.get(name, 0) + 1
+        if all(counts.get(g, 0) and counts[g] % steps == 0 for g in expect):
+            break
+    return {name: c / steps for name, c in counts.items()}
+
+
+def cuda_event_ms(fn, steps: int) -> float:
+    """ms a step of ``fn`` (``steps`` steps a call) between CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def epoch_training(cfg, store, device, card_line: str, per_step: dict) -> dict:
+    """A training run through the graphed epoch, as a user calls it: the
+    flagship's batch from ``epoch_index_matrix``, ``make_train_epoch``
+    (captured at its first call, replayed a step); every epoch mean finite,
+    parameters and BN running statistics changed, the kernels of
+    ``per_step`` ({kernel: launches a step}) launched by their wrappers (at
+    warm-up and capture) where the count is not 0, never where it is; in a
+    trace of 3 replays each such kernel ``per_step`` times a step; no
+    synchronising operation in an epoch but its one read; then the graphed
+    epoch against the eager store-fed loop (``make_train_step`` on
+    ``store.gather`` of the same rows, one state) in turns G E E G of
+    ``EPOCH_TIMED_STEPS`` steps (CUDA events), a 3-step profile of each,
+    and the gather's device time."""
+    state = create_train_state(cfg, device, seed=0)
+    train_epoch, train_step = make_train_epoch(cfg, store), make_train_step(cfg)
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    b = cfg.batch_size
+    # two epochs' orders: the phase runs 13 + 3 + 3 + 4 × 20 + 3 steps
+    rows = np.concatenate([epoch_index_matrix(store, e, b) for e in (0, 1)])
+    check(len(rows) >= 19 + 4 * EPOCH_TIMED_STEPS + 3, f"{len(rows)} rows in two epochs")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, means = train_epoch(state, rows[:13])
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    for name, n in per_step.items():
+        check((launches[name] > 0) == (n > 0),
+              f"graphed epoch: {name} launched {launches[name]} times (a step: {n})")
+    for name, v in loss_terms(means).items():
+        check(np.isfinite(v), f"graphed epoch mean {name} = {v}")
+    check(np.isfinite(means["grad_norm"]) and means["grad_norm"] > 0,
+          f"graphed epoch grad_norm {means['grad_norm']}")
+    check(means["nan_in_latents"] == 0.0, "graphed epoch: NaN in latents")
+    after = state.model.state_dict()
+    params = {k for k, _ in state.model.named_parameters()}
+    moved = [k for k in params if not torch.equal(before[k], after[k])]
+    check(len(moved) >= 0.9 * len(params), f"only {len(moved)} of {len(params)} parameters moved")
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    frozen = [k for k in stats if torch.equal(before[k], after[k])]
+    check(stats and not frozen, f"BN running statistics did not move: {frozen[:3]}")
+    check(state.step == 13, f"host step {state.step}")
+    terms = {k: round(float(v), 4) for k, v in loss_terms(means).items()}
+    knobs = "fused_text_head" + (", fused_pointwise" if cfg.fused_pointwise else "")
+    print(f"graphed epoch ({cfg.img_size} px, DIM {cfg.DIM_img}, {knobs}, "
+          f"batch {b}, {cfg.compute_dtype}): 13 steps "
+          f"ok in {first_s:.1f} s with the capture; wrapper launches {launches}; params moved "
+          f"({len(moved)}, {len(params)}); epoch means {terms}")
+
+    expect = {REPLAYED[name]: n for name, n in per_step.items() if n}
+    replayed = replay_kernel_counts(lambda: train_epoch(state, rows[13:16]), 3, expect)
+    check(replayed == expect, f"replay trace: kernels a step {replayed}, not {expect}")
+    print(f"kernels a replayed step (trace of 3 replays): {replayed}")
+
+    sites = synchronizing_ops(lambda: train_epoch(state, rows[16:19]))
+    print(f"synchronizing operations in a 3-step graphed epoch: {sum(sites.values())}"
+          + "".join(f"; {n} at {site}" for site, n in sorted(sites.items())))
+    check(sum(sites.values()) == 1 and all(site.startswith("mopoe_mimic_tpu_torch/train/scan.py")
+                                           for site in sites),
+          f"the graphed epoch synchronizes other than at its one read: {sites}")
+
+    dev_rows = torch.from_numpy(rows).to(device)
+
+    def eager(lo: int, hi: int):
+        for r in dev_rows[lo:hi]:
+            metrics = train_step(state, store.gather(r))
+        return metrics
+
+    times = {"graphed": [], "eager": []}
+    lo = 19
+    for path in ("graphed", "eager", "eager", "graphed"):
+        hi = lo + EPOCH_TIMED_STEPS
+        run = ((lambda lo=lo, hi=hi: train_epoch(state, rows[lo:hi])) if path == "graphed"
+               else (lambda lo=lo, hi=hi: eager(lo, hi)))
+        times[path].append(cuda_event_ms(run, EPOCH_TIMED_STEPS))
+        lo = hi
+    check(bool(torch.isfinite(state.step_t)), "step count")
+    profiles = {"graphed": device_profile(lambda: train_epoch(state, rows[lo:lo + 3]), 3),
+                "eager": device_profile(lambda: eager(lo, lo + 3), 3)}
+    gather_ms = device_us(lambda: store.gather_fn(store.cols, dev_rows[0]))
+    timing = {}
+    for path in ("graphed", "eager"):
+        ms = statistics.mean(times[path])
+        prof = profiles[path]
+        timing[path] = {"ms_per_step": times[path], "samples_per_s": [b / t * 1e3 for t in
+                                                                       times[path]],
+                        "device_busy_ms": prof["busy_ms"], "idle_pct": prof["idle_pct"],
+                        "device_ops": prof["ops"], "profiled_wall_ms": prof["wall_ms"]}
+        print(f"{knobs} {path} (batch {b}, {cfg.compute_dtype}, in turns G E E G, "
+              f"{EPOCH_TIMED_STEPS} steps "
+              f"a turn, CUDA events): "
+              + ", ".join(f"{t:.3f}" for t in times[path]) + f" ms a step (mean {ms:.3f}), "
+              + ", ".join(f"{b / t * 1e3:.1f}" for t in times[path]) + " samples/s; 3-step "
+              f"profile: device busy {prof['busy_ms']} ms a step, idle {prof['idle_pct']}% of "
+              f"{prof['wall_ms']:.3f} ms, {prof['ops']:.0f} device ops a step [{card_line}]")
+    print(f"store gather (batch {b}): {gather_ms[0] / 1e3:.4f} ms of device time "
+          f"({gather_ms[1]})")
+    return {"launches": launches, "replayed_per_step": replayed, "syncs": sites,
+            "first_call_s": first_s, "timing": timing, "gather_ms": gather_ms[0] / 1e3,
+            "gather_how": gather_ms[1], "params_moved": [len(moved), len(params)]}
+
+
+def epoch_capture_raises(cfg, device) -> str:
+    """On the card ``make_train_epoch`` captures or raises: with an
+    objective that waits for the host (a synchronize in the image
+    likelihood), its first call must raise, leaving the state as it was,
+    not train eagerly. Run last: a failed capture may leave the capture
+    stream's memory pool open."""
+    from mopoe_mimic_tpu_torch.train import losses
+
+    cfg = cfg.replace(img_size=64, DIM_img=4, DIM_text=4, class_dim=4, batch_size=4)
+    store = DeviceStore(SyntheticMimic(cfg, seed=0, length=8), cfg, device=device)
+    state = create_train_state(cfg, device, seed=0)
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    plain = losses.laplace_log_prob
+
+    def waits(*args):
+        torch.cuda.synchronize()
+        return plain(*args)
+
+    losses.laplace_log_prob = waits
+    try:
+        make_train_epoch(cfg, store)(state, epoch_index_matrix(store, 0, 4))
+        raised = None
+    except RuntimeError as err:
+        raised = f"{type(err).__name__}: {str(err).splitlines()[0][:120]}"
+    finally:
+        losses.laplace_log_prob = plain
+    check(raised is not None, "make_train_epoch did not raise on an uncapturable step")
+    check(state.step == 0 and all(torch.equal(v, before[k])
+                                  for k, v in state.model.state_dict().items()),
+          "a failed capture changed the state")
+    print(f"an uncapturable step: make_train_epoch raised ({raised}); the state is as it was")
+    return raised
+
+
+def drive_epoch(cfg, device, kernels=K12, rows: int = EPOCH_ROWS, parity_batch: int = 8,
+                card_line: str = "") -> dict:
+    """Phase 9: the store, the batch-8 parity of the graphed epoch against
+    the eager steps, and training A (``cfg``) through the graphed epoch,
+    then training B (``fused_pointwise`` as well). ``kernels`` () runs on
+    the CPU with the plain versions (the CPU rehearsal): the epoch is then
+    the plain loop, and the training runs, whose trace, sync and timing
+    checks need the card, are left out."""
+    device = torch.device(device)
+    store, report = epoch_store(cfg, device, rows)
+    print(f"store: {report['rows']} rows, {report['bytes']} B "
+          f"({report['bytes'] / 1e9:.3f} GB), card memory allocated +{report['allocated_bytes']}"
+          f" B, built in {report['build_s']:.1f} s")
+    out = {"store": report, "parity": epoch_parity(cfg, store, device, n=parity_batch)}
+    if kernels:
+        on_a = {**dict.fromkeys(K12, 1), **dict.fromkeys(K3, 0)}
+        out["training_a"] = epoch_training(cfg, store, device, card_line, on_a)
+        on_b = {**on_a, **dict.fromkeys(K3_BF16, K3_CALLS_PER_STEP)}
+        out["training_b"] = epoch_training(cfg.replace(fused_pointwise=True), store, device,
+                                           card_line, on_b)
+    return out
+
+
 def kernel_entries(results: dict, runs: dict, serve_launches: int) -> list:
     """The kernels line: each kernel with its launches on its own path (K1,
-    K2: the fused_text_head run; K3: the fused_pointwise run in bfloat16,
-    and for K3's float32 forward and pass A, which a bfloat16 step never
-    launches, phase 8's float32 fused_pointwise step), those on every path,
-    and its measurements."""
+    K2: training A's graphed epoch, whose wrappers launch at its warm-up and
+    capture, with the launches a replayed step from its trace; K3: the
+    fused_pointwise run in bfloat16, and for K3's float32 forward and pass
+    A, which a bfloat16 step never launches, phase 8's float32
+    fused_pointwise step), those on every path, and its measurements."""
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        path = ("train" if name in K12 else
+        path = ("train_epoch" if name in K12 else
                 "train_fused_pointwise_f32" if name in F32_ONLY else "train_fused_pointwise")
         by_path = {p: r["launches"][name] for p, r in runs.items() if r["launches"][name]}
         if name == "poe_subsets_f32":
             by_path = {"serve": serve_launches, **by_path}
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": runs[path]["launches"][name], **results[name],
-                        "launches_by_path": by_path})
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": runs[path]["launches"][name], **results[name],
+                 "launches_by_path": by_path}
+        if name in REPLAYED:
+            graphed = runs["train_epoch" if name in K12 else "train_epoch_fused_pointwise"]
+            entry["replayed_per_step"] = graphed["replayed_per_step"][REPLAYED[name]]
+        kernels.append(entry)
     return kernels
 
 
@@ -1885,6 +2233,15 @@ def main() -> int:
     gpu_step_against_cpu(flagship.replace(fused_text_head=True, fused_pointwise=True), device,
                          tuple(KERNELS))
     runs["train_fused_pointwise_f32"] = {"launches": launch_counts()}
+
+    # the epoch path: training A through the card-resident store and the
+    # graphed epoch (the main path), after the float32 parity against eager
+    epoch = drive_epoch(train_cfg, device, card_line=card_line)
+    runs["train_epoch"] = epoch["training_a"]
+    runs["train_epoch_fused_pointwise"] = epoch["training_b"]
+    print(json.dumps({"epoch_training": epoch}))
+
+    epoch_capture_raises(train_cfg, device)
 
     print(json.dumps({"kernels": kernel_entries(results, runs, serve_launches)}))
     print(card_line)

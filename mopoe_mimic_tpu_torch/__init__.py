@@ -19,8 +19,13 @@ Layout mirrors the JAX package:
                  ``csrc/pointwise.cu``)
   * ``models/``  residual blocks, image and word-text networks, MMVae, and
                  the JAX → PyTorch weight converter
+  * ``data/``    the synthetic dataset, the host-fed ``BatchLoader`` and the
+                 card-resident ``DeviceStore`` (copies and ports of the JAX
+                 package's numpy-only data modules)
   * ``train/``   the objective, the train state and optimizer, the train
-                 and eval steps
+                 and eval steps and their bodies, and the epoch runners
+                 (``train/scan.py``: a CUDA graph of a step, replayed per
+                 batch of the store)
   * ``serve.py`` the inference session and its CLI
 
 Module names use the reference's ``state_dict`` keys

@@ -17,15 +17,15 @@ _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 def laplace_log_prob(x: torch.Tensor, loc: torch.Tensor, scale: float) -> torch.Tensor:
     """log Laplace(x; loc, scale); the image decoders' scale is fixed at
-    0.75 (ConvNetworksImgMimic.py:54)."""
-    scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
-    return -torch.log(2.0 * scale) - torch.abs(x - loc) / scale
+    0.75 (ConvNetworksImgMimic.py:54). ``scale`` stays a Python float: a
+    tensor made from it would be a copy to the card, which waits for the
+    host and cannot be captured in a CUDA graph."""
+    return -math.log(2.0 * scale) - torch.abs(x - loc) / scale
 
 
 def normal_log_prob(x: torch.Tensor, loc: torch.Tensor, scale: float) -> torch.Tensor:
-    scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
-    var = scale * scale
-    return -((x - loc) ** 2) / (2.0 * var) - torch.log(scale) - _HALF_LOG_2PI
+    """log N(x; loc, scale²), ``scale`` a Python float."""
+    return -((x - loc) ** 2) / (2.0 * scale * scale) - math.log(scale) - _HALF_LOG_2PI
 
 
 def bernoulli_log_prob(x: torch.Tensor, probs: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -1,2 +1,2 @@
-"""Training: the objective (``losses``), the state and optimizer (``state``)
-and the train and eval steps (``step``)."""
+"""Training: the objective (``losses``), the state and optimizer (``state``),
+the train and eval steps (``step``) and the epoch runners (``scan``)."""

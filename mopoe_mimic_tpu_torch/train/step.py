@@ -1,9 +1,13 @@
 """The train and eval steps.
 
 Port of ``mopoe_mimic_tpu/train/step.py``: forward, objective, gradients,
-clipping and the Adam update, in eager PyTorch. The state is updated in
-place and the step returns its metrics as tensors on the device, so the
-host never waits for the card inside a step.
+clipping and the Adam update. The state is updated in place and the step
+returns its metrics as tensors on the device, so the host never waits for
+the card inside a step. The step bodies (``make_train_step_body``,
+``make_eval_step_body``) take a batch on the device and do no per-step
+work on the host, so that ``train/scan.py`` can capture them in a CUDA
+graph; ``make_train_step`` and ``make_eval_step`` run them eagerly on a
+batch from anywhere.
 
 Method dispatch as in the JAX package: moe, jsd and joint_elbo take
 ``calc_joint_elbo_loss``; poe adds a unimodal ELBO per modality, each a
@@ -26,7 +30,7 @@ bfloat16.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
 import torch
 
@@ -39,7 +43,7 @@ from mopoe_mimic_tpu_torch.train.losses import (
     calc_log_probs,
     modality_log_prob,
 )
-from mopoe_mimic_tpu_torch.train.state import TrainState, warmup_factor
+from mopoe_mimic_tpu_torch.train.state import TrainState, set_step_learning_rate
 
 Eps = Optional[Union[torch.Tensor, float]]
 
@@ -56,8 +60,12 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def _autocast(cfg, device: torch.device):
+    """bfloat16 autocast without its cache of weight casts, as PyTorch
+    requires where a CUDA graph captures the step (``train/scan.py``): the
+    cache would free its casts at the context's exit while the graph still
+    reads them."""
     if compute_dtype(cfg) == torch.bfloat16:
-        return torch.autocast(device.type, dtype=torch.bfloat16)
+        return torch.autocast(device.type, dtype=torch.bfloat16, cache_enabled=False)
     return contextlib.nullcontext()
 
 
@@ -153,69 +161,107 @@ def _detach(tree):
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt(Σ x²) over every tensor, as ``optax.global_norm``."""
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+    """sqrt(Σ x²) over every tensor, as ``optax.global_norm``: one norm per
+    tensor (``torch._foreach_norm``), then the norm of those."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
-def make_train_step(cfg, eps: Eps = None) -> Callable[[TrainState, Mapping[str, Any]], Dict]:
-    """``train_step(state, batch) -> metrics``: one Adam step in place.
+def static_grads(params: List[torch.nn.Parameter]) -> List[torch.Tensor]:
+    """Each parameter's gradient, made (zeros) where it has none. The step
+    zeroes and fills these tensors in place, so they keep their storage
+    from step to step (a CUDA graph replays into them) and every parameter
+    has one, zero where the loss does not reach it (optax updates every
+    leaf)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return [p.grad for p in params]
 
-    ``batch`` holds the port's layouts (images NCHW, text ids [B, L]) as
-    tensors or numpy arrays. ``metrics["grad_norm"]`` is the global norm
-    before clipping (step.py:207). ``eps`` injects the reparameterisation
-    noise for tests; by default it is drawn from ``state.generator``."""
+
+def make_train_step_body(cfg, eps: Eps = None) -> Callable[[TrainState, Mapping[str, torch.Tensor]],
+                                                           Dict]:
+    """``body(state, batch) -> metrics``: one Adam step in place on a batch
+    already on the parameters' device, in the port's layouts, with nothing
+    that waits for the host or works on it per step: the gradients are
+    zeroed on the device, the learning rate is written there from the
+    device step count ``state.step_t`` (``set_step_learning_rate``), and the
+    metrics stay tensors. ``make_train_step`` runs it eagerly;
+    ``train/scan.make_train_epoch`` captures it in a CUDA graph. The host's
+    step count ``state.step`` is the caller's. ``metrics["grad_norm"]`` is
+    the global norm before clipping (step.py:207); ``eps`` injects the
+    reparameterisation noise for tests, by default drawn from
+    ``state.generator``."""
     clip = float(cfg.grad_clip_norm)
 
-    def train_step(state: TrainState, batch: Mapping[str, Any]) -> Dict[str, Any]:
+    def body(state: TrainState, batch: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         model, opt = state.model, state.optimizer
-        param = next(model.parameters())
-        device = param.device
-        batch = _to_device(batch, param)
+        device = state.step_t.device
         model.train()
-        opt.zero_grad(set_to_none=True)
+        grads = static_grads([p for group in opt.param_groups for p in group["params"]])
+        torch._foreach_zero_(grads)
         with _autocast(cfg, device):
             total, metrics = _forward_and_objective(cfg, model, batch, state.generator, eps)
         total.backward()
-
-        params = [p for group in opt.param_groups for p in group["params"]]
-        for p in params:  # optax updates every leaf, zero gradients included
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
         grad_norm = global_norm(grads)
         if clip > 0:  # optax.clip_by_global_norm
             scale = torch.where(grad_norm < clip, torch.ones_like(grad_norm), clip / grad_norm)
             torch._foreach_mul_(grads, scale)
-        ramp = warmup_factor(cfg, state.step)
-        for group in opt.param_groups:
-            group["lr"] = group["base_lr"] * ramp
+        set_step_learning_rate(cfg, state)
         opt.step()
-        state.step += 1
+        state.step_t += 1
         metrics = _detach(metrics)
         metrics["grad_norm"] = grad_norm.detach()
+        return metrics
+
+    return body
+
+
+def make_train_step(cfg, eps: Eps = None) -> Callable[[TrainState, Mapping[str, Any]], Dict]:
+    """``train_step(state, batch) -> metrics``: one Adam step in place
+    (``make_train_step_body``), eagerly, for one batch from anywhere.
+
+    ``batch`` holds the port's layouts (images NCHW, text ids [B, L]) as
+    tensors or numpy arrays; uint8 images are dequantised."""
+    body = make_train_step_body(cfg, eps)
+
+    def train_step(state: TrainState, batch: Mapping[str, Any]) -> Dict[str, Any]:
+        metrics = body(state, _to_device(batch, next(state.model.parameters())))
+        state.step += 1
         return metrics
 
     return train_step
 
 
-def make_eval_step(cfg, eps: Eps = None) -> Callable[..., Dict]:
-    """``eval_step(state, batch, generator=None) -> metrics``: the forward
-    in eval mode (BN running statistics, no dropout) and the objective,
-    without gradients; noise from ``generator`` or ``state.generator``."""
+def make_eval_step_body(cfg, eps: Eps = None) -> Callable[..., Dict]:
+    """``body(state, batch, generator) -> metrics``: the forward in eval
+    mode (BN running statistics, no dropout) and the objective, without
+    gradients, on a batch on the parameters' device; noise from
+    ``generator``. The model's mode is restored after."""
 
-    def eval_step(state: TrainState, batch: Mapping[str, Any],
-                  generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    def body(state: TrainState, batch: Mapping[str, torch.Tensor],
+             generator: torch.Generator) -> Dict[str, Any]:
         model = state.model
-        param = next(model.parameters())
-        device = param.device
         was_training = model.training
         model.eval()
         try:
-            with torch.no_grad(), _autocast(cfg, device):
-                _, metrics = _forward_and_objective(cfg, model, _to_device(batch, param),
-                                                   generator or state.generator, eps)
+            with torch.no_grad(), _autocast(cfg, state.step_t.device):
+                _, metrics = _forward_and_objective(cfg, model, batch, generator, eps)
         finally:
             model.train(was_training)
         return metrics
+
+    return body
+
+
+def make_eval_step(cfg, eps: Eps = None) -> Callable[..., Dict]:
+    """``eval_step(state, batch, generator=None) -> metrics``
+    (``make_eval_step_body``) for one batch from anywhere; noise from
+    ``generator`` or ``state.generator``."""
+    body = make_eval_step_body(cfg, eps)
+
+    def eval_step(state: TrainState, batch: Mapping[str, Any],
+                  generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        return body(state, _to_device(batch, next(state.model.parameters())),
+                    generator or state.generator)
 
     return eval_step
