@@ -53,7 +53,9 @@ any failure of which exits non-zero:
      (1-D), W from a conv and from a transposed-conv weight: in float32
      with TF32 off against the plain versions accumulated in float64 (y and
      dx rtol 1e-5, dW, dcb, dγ, dβ rtol 1e-4, all atol 1e-5·max|ref|), and
-     in bfloat16 (W, dy; x too where the flagship feeds it bf16) against the
+     in bfloat16 (W, dy and x at every shape, as the blocks after a
+     network's first get it under ``bn_compute_dtype="compute"``; and float32
+     x too where the float32-BN flagship feeds it) against the
      plain versions on the same inputs (y |Δ| ≤ 1e-2·max|ref|, gradients
      2e-2·max|ref|), each bfloat16 case run twice and bitwise equal; each
      bfloat16 kernel timed at the largest block and at
@@ -138,10 +140,29 @@ any failure of which exits non-zero:
      the device busy time, idle share and device ops a step; the gather's
      device time; then training B (``fused_pointwise`` too) the same way,
      each bf16 K3 kernel 32 times a replayed step and the float32 ones
-     never. Last, an objective that waits for the host makes
-     ``make_train_epoch`` raise (no eager fallback), the state unchanged.
+     never; then training C (A with ``bn_compute_dtype="compute"``, the JAX
+     production diet) the same way as A, and C against A from the same
+     weights, rows and dropout draws: 13 steps of each, C's total loss
+     within 5e-2 relative of A's at every step; both in turns (A C C A, 20
+     steps a turn), and a 3-step profile of each with BatchNorm's forward
+     and backward device time;
+ 10. the training CLI at the flagship's full width, training C (batch 256,
+     a 2048-row store, 2 epochs × 8 steps, a checkpoint every epoch, run
+     directories under ``build/cli_runs``): ``python -m
+     mopoe_mimic_tpu_torch.main`` in a process of its own exits 0 and leaves
+     its run directory, ``config.json``, checkpoints and CSV row; the same
+     run through ``main`` in this process launches K1 and K2 (counted) and
+     no K3; 1 epoch, then ``--load_run`` for 1 more, equals the straight 2
+     epochs bit for bit (parameters, BN buffers, Adam state, step count,
+     generators); each epoch's train pass, test pass, callbacks and
+     checkpoint write, and the loop's train pass a step against training
+     C's ``make_train_epoch`` called directly; ``autotune_batch_size`` from
+     256: each probe's peak and the batch picked. Last, an objective that
+     waits for the host makes ``make_train_epoch`` raise (no eager
+     fallback), the state unchanged.
 
-Phase 9's numbers are printed as one JSON line ``{"epoch_training": ...}``.
+Phase 9's numbers are printed as one JSON line ``{"epoch_training": ...}``,
+phase 10's as ``{"cli_training": ...}``.
 The last lines are a JSON object of the kernels (each with its launches on
 its path, a replayed step's launches from phase 9's trace, error, time,
 plain time, the least time the card could take for its bytes, operations
@@ -152,10 +173,12 @@ function where one exists), the card's name and power limit, and
 
 from __future__ import annotations
 
+import csv
 import functools
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -165,6 +188,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mopoe_mimic_tpu_torch import main as train_cli
 from mopoe_mimic_tpu_torch.config import MopoeConfig
 from mopoe_mimic_tpu_torch.models.mmvae import MMVae
 from mopoe_mimic_tpu_torch.ops import _build, cuda_fusion, cuda_pointwise, cuda_texthead
@@ -174,9 +198,11 @@ from mopoe_mimic_tpu_torch.ops import texthead as TH
 from mopoe_mimic_tpu_torch.data.device_store import DeviceStore
 from mopoe_mimic_tpu_torch.data.synthetic import SyntheticMimic
 from mopoe_mimic_tpu_torch.serve import InferenceSession
+from mopoe_mimic_tpu_torch.train.autotune import autotune_batch_size, step_memory_bytes
 from mopoe_mimic_tpu_torch.train.scan import epoch_index_matrix, make_train_epoch
 from mopoe_mimic_tpu_torch.train.state import create_train_state
 from mopoe_mimic_tpu_torch.train.step import loss_terms, make_train_step
+from mopoe_mimic_tpu_torch.utils.exceptions import DeviceOutOfMemory
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "configs" / "flagship.json"
@@ -857,8 +883,10 @@ def head_against_unfused(h, k, b, t, g) -> dict:
     return times
 
 
-# (B, C, Co, spatial, conv bias, x in bfloat16 in the bf16 check): blocks of
-# the flagship step
+# (B, C, Co, spatial, conv bias, the float32-BN flagship feeds bfloat16 x):
+# blocks of the flagship step. The bf16 check runs every shape with bfloat16
+# x (the blocks after a network's first under bn_compute_dtype="compute"),
+# and with float32 x too where the last field is False
 K3_CASES = (
     (3, 64, 64, (5, 5), True, True),        # small, odd rows
     (256, 64, 64, (64, 64), False, True),   # image encoder resblock_1 on the stem's bf16 output
@@ -1155,33 +1183,38 @@ def k3_against_plain(device: torch.device) -> dict:
     for i, (B, C, Co, spatial, bias, x_bf16) in enumerate(K3_CASES):
         for transpose in (False, True):
             for w_dtype in (torch.float32, torch.bfloat16):
-                x_dtype = torch.bfloat16 if w_dtype == torch.bfloat16 and x_bf16 else torch.float32
-                args = k3_case(device, B, C, Co, spatial, bias, transpose, x_dtype, w_dtype,
-                               seed=40 + i)
-                got = k3_run(args)
-                kernels = k3_names(args[5])
-                if w_dtype == torch.float32:
-                    ref = k3_plain(args, torch.float64)
-                    errs = [close(a, r, rtol, 1e-5, f"{n} {(B, C, Co, spatial)} f32")
-                            for a, r, n, rtol in zip(got, ref, names, (1e-5,) * 2 + (1e-4,) * 4)]
-                else:
-                    ref = k3_plain(args)
-                    ref = (ref[0].to(w_dtype),) + ref[1:]  # y rounded as the kernel stores it
-                    errs = [close(a, r, 0.0, frac, f"{n} {(B, C, Co, spatial)} bf16")
-                            for a, r, n, frac in zip(got, ref, names, (1e-2,) + (2e-2,) * 5)]
-                    again = k3_run(args)
-                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                          f"K3 {(B, C, Co, spatial)} bf16: two runs on the same inputs differ")
-                torch.cuda.synchronize()
-                worst[kernels["fwd"]] = max(worst[kernels["fwd"]], errs[0])
-                worst[kernels["dx"]] = max(worst[kernels["dx"]], errs[1])
-                for name in (kernels["pass_a"], "pointwise_bwd_finalize"):
-                    worst[name] = max(worst[name], *errs[2:])
-                print(f"K3 vs plain (B,C,Co)={(B, C, Co)} spatial {spatial} "
-                      f"{'transpose' if transpose else 'conv'} x {str(x_dtype)[6:]} "
-                      f"W {str(w_dtype)[6:]}: max |Δ| "
-                      + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
-                      + ("; two runs bitwise equal" if w_dtype == torch.bfloat16 else ""))
+                # bfloat16 W with bfloat16 x at every shape (the blocks after a
+                # network's first under bn_compute_dtype="compute"), and with
+                # float32 x where the float32-BN flagship feeds it
+                x_dtypes = ((torch.float32,) if w_dtype == torch.float32 else
+                            (torch.bfloat16,) if x_bf16 else (torch.bfloat16, torch.float32))
+                for x_dtype in x_dtypes:
+                    args = k3_case(device, B, C, Co, spatial, bias, transpose, x_dtype, w_dtype,
+                                   seed=40 + i)
+                    got = k3_run(args)
+                    kernels = k3_names(args[5])
+                    if w_dtype == torch.float32:
+                        ref = k3_plain(args, torch.float64)
+                        errs = [close(a, r, rtol, 1e-5, f"{n} {(B, C, Co, spatial)} f32")
+                                for a, r, n, rtol in zip(got, ref, names, (1e-5,) * 2 + (1e-4,) * 4)]
+                    else:
+                        ref = k3_plain(args)
+                        ref = (ref[0].to(w_dtype),) + ref[1:]  # y rounded as the kernel stores it
+                        errs = [close(a, r, 0.0, frac, f"{n} {(B, C, Co, spatial)} bf16")
+                                for a, r, n, frac in zip(got, ref, names, (1e-2,) + (2e-2,) * 5)]
+                        again = k3_run(args)
+                        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                              f"K3 {(B, C, Co, spatial)} bf16: two runs on the same inputs differ")
+                    torch.cuda.synchronize()
+                    worst[kernels["fwd"]] = max(worst[kernels["fwd"]], errs[0])
+                    worst[kernels["dx"]] = max(worst[kernels["dx"]], errs[1])
+                    for name in (kernels["pass_a"], "pointwise_bwd_finalize"):
+                        worst[name] = max(worst[name], *errs[2:])
+                    print(f"K3 vs plain (B,C,Co)={(B, C, Co)} spatial {spatial} "
+                          f"{'transpose' if transpose else 'conv'} x {str(x_dtype)[6:]} "
+                          f"W {str(w_dtype)[6:]}: max |Δ| "
+                          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+                          + ("; two runs bitwise equal" if w_dtype == torch.bfloat16 else ""))
         del args, got, ref
 
     out = {}
@@ -2004,7 +2037,8 @@ def epoch_training(cfg, store, device, card_line: str, per_step: dict) -> dict:
     check(stats and not frozen, f"BN running statistics did not move: {frozen[:3]}")
     check(state.step == 13, f"host step {state.step}")
     terms = {k: round(float(v), 4) for k, v in loss_terms(means).items()}
-    knobs = "fused_text_head" + (", fused_pointwise" if cfg.fused_pointwise else "")
+    knobs = ("fused_text_head" + (", fused_pointwise" if cfg.fused_pointwise else "")
+             + (", bn_compute_dtype=compute" if cfg.bn_compute_dtype == "compute" else ""))
     print(f"graphed epoch ({cfg.img_size} px, DIM {cfg.DIM_img}, {knobs}, "
           f"batch {b}, {cfg.compute_dtype}): 13 steps "
           f"ok in {first_s:.1f} s with the capture; wrapper launches {launches}; params moved "
@@ -2063,6 +2097,276 @@ def epoch_training(cfg, store, device, card_line: str, per_step: dict) -> dict:
             "gather_how": gather_ms[1], "params_moved": [len(moved), len(params)]}
 
 
+TRAINING_C_STEPS = 13  # steps of A and C compared loss for loss
+BN_NAMES = ("bn_", "batch_norm", "batchnorm")  # BatchNorm kernels of cuDNN and ATen
+
+
+def bn_device_ms(by_name: dict) -> dict:
+    """BatchNorm's forward and backward device time (ms a step) in a
+    profile's time by kernel name: names with ``bn_``, ``batch_norm`` or
+    ``batchnorm``, backward where they hold ``bw`` or ``backward``."""
+    out = {"fwd_ms": 0.0, "bwd_ms": 0.0, "kernels": []}
+    for name, t in by_name.items():
+        low = name.lower()
+        if any(k in low for k in BN_NAMES):
+            out["bwd_ms" if ("bw" in low or "backward" in low) else "fwd_ms"] += t
+            # the function's own name, with its library's namespace
+            out["kernels"].append(re.split(r"[<(]", name.removeprefix("void "))[0])
+    out["kernels"] = sorted(set(out["kernels"]))
+    return out
+
+
+def training_c_against_a(cfg_a, store, device, card_line: str) -> dict:
+    """Training C (A with ``bn_compute_dtype="compute"``: the JAX production
+    diet, bench.py:153-154) against A through the graphed epoch, from the
+    same weights, rows and dropout draws: ``TRAINING_C_STEPS`` steps of
+    each, one row a call, so each step's terms are read; every term finite
+    and C's total loss within 5e-2 relative of A's at every step (the bound
+    of JAX's test_bn_compute_dtype_bf16_finite_and_close). Then both in
+    turns A C C A of ``EPOCH_TIMED_STEPS`` steps (CUDA events) and a 3-step
+    profile of each: device busy, idle share, device ops, and BatchNorm's
+    forward and backward device time a step."""
+    paths = {"A": cfg_a, "C": cfg_a.replace(bn_compute_dtype="compute")}
+    b = cfg_a.batch_size
+    rows = np.concatenate([epoch_index_matrix(store, e, b) for e in (0, 1)])
+    check(len(rows) >= TRAINING_C_STEPS + 4 * EPOCH_TIMED_STEPS + 12, f"{len(rows)} rows")
+    runs, losses = {}, {}
+    for path, cfg in paths.items():
+        state = create_train_state(cfg, device, seed=0)
+        train_epoch = make_train_epoch(cfg, store)
+        torch.manual_seed(11)  # the same dropout draws in both runs
+        losses[path] = []
+        for i in range(TRAINING_C_STEPS):
+            _, means = train_epoch(state, rows[i:i + 1])
+            for name, v in loss_terms(means).items():
+                check(np.isfinite(v), f"training {path} step {i}: {name} = {v}")
+            check(means["nan_in_latents"] == 0.0, f"training {path} step {i}: NaN in latents")
+            losses[path].append(means["total_loss"])
+        runs[path] = (state, train_epoch)
+    rel = [abs(c - a) / abs(a) for a, c in zip(losses["A"], losses["C"])]
+    check(max(rel) <= 5e-2, f"training C against A: total loss rel |Δ| {max(rel):.3e} > 5e-2")
+    print(f"training C (bn_compute_dtype=compute) against A, graphed, {TRAINING_C_STEPS} steps "
+          f"from the same weights, rows and dropout draws: total loss rel |Δ| max "
+          f"{max(rel):.3e} (bound 5e-2), last step A {losses['A'][-1]:.4f}, C "
+          f"{losses['C'][-1]:.4f} [{card_line}]")
+
+    times = {"A": [], "C": []}
+    lo = TRAINING_C_STEPS
+    for path in ("A", "C", "C", "A"):
+        state, train_epoch = runs[path]
+        hi = lo + EPOCH_TIMED_STEPS
+        times[path].append(cuda_event_ms(
+            lambda lo=lo, hi=hi: train_epoch(state, rows[lo:hi]), EPOCH_TIMED_STEPS))
+        lo = hi
+    out = {"steps": TRAINING_C_STEPS, "total_loss_rel_max": max(rel),
+           "losses": {p: [round(v, 4) for v in ls] for p, ls in losses.items()}}
+    for path, (state, train_epoch) in runs.items():
+        prof = device_profile(lambda: train_epoch(state, rows[lo:lo + 3]), 3)
+        bn = bn_device_ms(prof["by_name_ms"])
+        out[path] = {"ms_per_step": times[path], "device_busy_ms": prof["busy_ms"],
+                     "idle_pct": prof["idle_pct"], "device_ops": prof["ops"],
+                     "bn_fwd_ms": bn["fwd_ms"], "bn_bwd_ms": bn["bwd_ms"],
+                     "bn_kernels": bn["kernels"]}
+        print(f"training {path} graphed (batch {b}, bf16, BatchNorm in "
+              f"{'bfloat16' if path == 'C' else 'float32'}; in turns A C C A, "
+              f"{EPOCH_TIMED_STEPS} steps a turn, CUDA events): "
+              + ", ".join(f"{t:.3f}" for t in times[path]) + " ms a step; 3-step profile: "
+              f"device busy {prof['busy_ms']} ms a step, idle {prof['idle_pct']}%, "
+              f"{prof['ops']:.0f} device ops a step; BatchNorm forward {bn['fwd_ms']:.3f} ms, "
+              f"backward {bn['bwd_ms']:.3f} ms a step ({', '.join(bn['kernels'])}) "
+              f"[{card_line}]")
+        lo += 6
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the training CLI: main → Experiment → run_epochs over the graphed epoch
+# ---------------------------------------------------------------------------
+
+CLI_ROWS = 2048  # rows of each synthetic split (train seed 0, test seed 1)
+CLI_EPOCHS, CLI_STEPS = 2, 8  # epochs, steps an epoch (2048 rows / batch 256)
+CLI_ROOT = ROOT / "build" / "cli_runs"  # run directories of the phase (git-ignored)
+
+
+def cli_argv(root: Path, *extra) -> list:
+    """The training CLI's command line for training C at the flagship: the
+    JAX production diet (``fused_text_head``, ``bn_compute_dtype=compute``),
+    batch 256, the card-resident store of ``CLI_ROWS`` rows and the graphed
+    epoch, ``CLI_EPOCHS`` epochs of ``CLI_STEPS`` steps, a checkpoint every
+    epoch, seed 0, run directories under ``root``."""
+    return ["--config_path", str(FLAGSHIP), "--dataset", "testing", "--eval_lr", "false",
+            "--calc_nll", "false", "--use_clf", "false", "--device_resident_data", "true",
+            "--fused_text_head", "true", "--bn_compute_dtype", "compute",
+            "--lr_warmup_steps", str(TRAIN_WARMUP_STEPS), "--batch_size", "256",
+            "--synthetic_length", str(CLI_ROWS), "--end_epoch", str(CLI_EPOCHS),
+            "--steps_per_training_epoch", str(CLI_STEPS), "--checkpoint_freq", "1",
+            "--seed", "0", "--dir_experiment", str(root), *extra]
+
+
+def check_cli_run(root: Path, epochs: int, argv: list) -> dict:
+    """The one run directory under ``root`` as ``epochs`` epochs of the CLI
+    on ``argv`` leave it: ``config.json`` as ``argv`` parses (the diet's
+    knobs, the widths, the batch, the store's rows), a checkpoint each
+    epoch, and its row in the results CSV."""
+    runs = [p for p in root.iterdir() if p.is_dir()]
+    check(len(runs) == 1, f"{root}: run directories {runs}")
+    run = runs[0]
+    with open(run / "config.json") as f:
+        saved = json.load(f)
+    parsed = MopoeConfig.from_cli(argv)
+    want = {k: getattr(parsed, k) for k in (
+        "bn_compute_dtype", "fused_text_head", "device_resident_data", "batch_size",
+        "synthetic_length", "DIM_img", "img_size", "compute_dtype", "seed")}
+    check(saved["bn_compute_dtype"] == "compute" and all(saved[k] == v for k, v in want.items()),
+          f"{run.name}/config.json: {({k: saved[k] for k in want})}, not {want}")
+    kept = sorted(int(p.name) for p in (run / "checkpoints").iterdir() if p.name.isdigit())
+    check(kept == list(range(epochs)), f"{run.name}: checkpoints {kept}")
+    with open(root / "experiments_dataframe.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == 1 and rows[0]["str_experiment"] == run.name
+          and float(rows[0]["total_epochs"]) == epochs - 1, f"{root}: CSV rows {rows}")
+    return {"run": run, "checkpoint_bytes": (run / "checkpoints" / str(epochs - 1)
+                                             / "state.pt").stat().st_size}
+
+
+def train_state_tensors(state) -> dict:
+    """Every tensor a resume must give back: parameters and buffers, Adam's
+    state, the step count, the state's and the default generators."""
+    opt = state.optimizer
+    out = dict(state.model.state_dict())
+    for i, p in enumerate(p for g in opt.param_groups for p in g["params"]):
+        out.update({f"adam/{i}/{k}": v.detach().clone() for k, v in opt.state[p].items()})
+    device = state.step_t.device
+    out.update(step_t=state.step_t.clone(), generator=state.generator.get_state(),
+               default_generator=(torch.cuda.get_rng_state(device) if device.type == "cuda"
+                                  else torch.get_rng_state()))
+    return out
+
+
+def cli_training(device, card_line: str, direct_ms: float, extra: tuple = ()) -> dict:
+    """Phase 10: the training CLI at the flagship's full width (``cli_argv``).
+    Once as a user runs it, ``python -m mopoe_mimic_tpu_torch.main`` in a
+    process of its own (exit 0, two epoch lines, the run directory); once
+    in this process through ``main``, its launches counted (K1 and K2 > 0,
+    K3 none); once for 1 epoch and then ``--load_run`` for 1 more, which
+    must equal the straight run bit for bit in parameters, BN buffers, Adam
+    state, step count and generators (cuDNN deterministic). The straight
+    run's epochs split into train pass, test pass, callbacks and checkpoint
+    write, and its train pass a step against ``direct_ms``, training C's
+    graphed epoch called directly (phase 9). ``extra`` flags go to every
+    run (the CPU rehearsal's small widths)."""
+    device = torch.device(device)
+
+    def argv(root: Path, *more) -> list:
+        return cli_argv(root, *extra, *more)
+
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mopoe_mimic_tpu_torch.main",
+                           *argv(CLI_ROOT / "process"), "--device", device.type], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m mopoe_mimic_tpu_torch.main exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    epoch_lines = [line for line in proc.stderr.splitlines() if "train_loss=" in line]
+    check(len(epoch_lines) == CLI_EPOCHS, f"the CLI's epoch lines: {epoch_lines}")
+    split_re = (r"epoch (\d+) split: train pass ([\d.]+) s, test pass ([\d.]+) s, callbacks "
+                r"([\d.]+) s \(checkpoint write ([\d.]+) s\)")
+    process_split = {int(m[0]): dict(zip(("train", "test", "callbacks", "checkpoint"),
+                                         map(float, m[1:])))
+                     for m in re.findall(split_re, proc.stderr)}
+    check(sorted(process_split) == list(range(CLI_EPOCHS)), "the CLI's epoch split lines")
+    process = check_cli_run(CLI_ROOT / "process", CLI_EPOCHS, argv(CLI_ROOT))
+    print(f"python -m mopoe_mimic_tpu_torch.main (training C, flagship, batch 256, "
+          f"{CLI_ROWS}-row store, {CLI_EPOCHS} epochs × {CLI_STEPS} steps): exit 0 in "
+          f"{wall:.1f} s; " + "; ".join(line.split(" INFO ")[-1] for line in epoch_lines)
+          + f"; {process['run'].name}: config.json, checkpoints 0-{CLI_EPOCHS - 1} "
+          f"({process['checkpoint_bytes']} B each), its CSV row [{card_line}]")
+
+    reset_launch_counts()
+    straight = train_cli.main(argv(CLI_ROOT / "straight"), device=device)
+    launches = launch_counts()
+    ref = train_state_tensors(straight["state"])
+    for name in KERNELS:
+        check((launches[name] > 0) == (name in K12 and device.type == "cuda"),
+              f"CLI run: {name} launched {launches[name]} times")
+    check(straight["epochs_run"] == CLI_EPOCHS and straight["state"].step == CLI_EPOCHS * CLI_STEPS,
+          f"CLI run: {straight['epochs_run']} epochs, step {straight['state'].step}")
+    check_cli_run(CLI_ROOT / "straight", CLI_EPOCHS, argv(CLI_ROOT))
+    history = straight["history"]
+    for h in history:
+        check(np.isfinite(h["train_loss"]) and np.isfinite(h["test_loss"]), f"CLI epoch {h}")
+    del straight
+
+    train_cli.main(argv(CLI_ROOT / "resumed", "--end_epoch", "1"), device=device)
+    (run,) = [p for p in (CLI_ROOT / "resumed").iterdir() if p.is_dir()]
+    resumed = train_cli.main(["--load_run", str(run), "--end_epoch", str(CLI_EPOCHS)],
+                             device=device)
+    check(resumed["epochs_run"] == 1 and resumed["history"][0]["epoch"] == 1,
+          f"--load_run ran {resumed['epochs_run']} epochs")
+    got = train_state_tensors(resumed["state"])
+    del resumed
+    check(got.keys() == ref.keys(), "resumed state's tensors differ in names")
+    unequal = [k for k in ref if not torch.equal(got[k], ref[k])]
+    worst = max((float((got[k].double() - ref[k].double()).abs().max()
+                       / ref[k].double().abs().max().clamp_min(1e-30)) for k in unequal
+                 if ref[k].is_floating_point()), default=0.0)
+    print(f"--load_run (1 epoch, then 1 more) against the straight {CLI_EPOCHS} epochs: "
+          f"{len(ref) - len(unequal)} of {len(ref)} tensors bitwise equal"
+          + (f"; largest relative difference {worst:.3e} in {unequal[:4]}" if unequal else "")
+          + f" (cuDNN deterministic) [{card_line}]")
+    check(not unequal, f"the resumed run differs from the straight one in {len(unequal)} "
+          f"tensors, largest relative difference {worst:.3e}: {unequal[:6]}")
+
+    splits = {"process": [process_split[e] for e in range(CLI_EPOCHS)],
+              "this_process": [h["seconds"] for h in history]}
+    loop_ms = {where: [e["train"] / CLI_STEPS * 1e3 for e in split]
+               for where, split in splits.items()}
+    for where, label in (("process", "its own process, cuDNN's default algorithms"),
+                         ("this_process", "this process, cuDNN deterministic")):
+        print(f"CLI epochs (training C, batch 256, in {label}): "
+              + "; ".join(f"epoch {e}: train pass {s['train']:.3f} s, test pass "
+                          f"{s['test']:.3f} s, callbacks {s['callbacks']:.3f} s of which the "
+                          f"checkpoint write {s['checkpoint']:.3f} s"
+                          for e, s in enumerate(splits[where]))
+              + f"; the loop's train pass {loop_ms[where][-1]:.3f} ms a step at epoch "
+              f"{CLI_EPOCHS - 1} (epoch 0 {loop_ms[where][0]:.3f}, with the captures) against "
+              f"{direct_ms:.3f} ms a step of make_train_epoch called directly (phase 9, "
+              f"training C, cuDNN deterministic) [{card_line}]")
+    return {"subprocess_s": wall, "launches": launches, "split_s": splits,
+            "loop_ms_per_step": loop_ms, "direct_ms_per_step": direct_ms,
+            "checkpoint_bytes": process["checkpoint_bytes"], "resume_bitwise": True}
+
+
+def cli_autotune(device, card_line: str) -> dict:
+    """``autotune_batch_size`` at the flagship under training C's diet, from
+    batch 256: each probe's peak (one eager train step on the card) and the
+    batch picked."""
+    cfg = MopoeConfig.from_cli(cli_argv(CLI_ROOT / "autotune"))
+    probes = []
+
+    def probe(c):
+        try:
+            peak = step_memory_bytes(c, device)
+        except DeviceOutOfMemory as e:
+            probes.append({"batch": c.batch_size, "peak_bytes": None, "oom": str(e)[:120]})
+            raise
+        probes.append({"batch": c.batch_size, "peak_bytes": peak})
+        return peak
+
+    t0 = time.perf_counter()
+    picked = autotune_batch_size(cfg, probe_fn=probe, device=device)
+    seconds = time.perf_counter() - t0
+    total = torch.cuda.mem_get_info(device)[1]
+    fits = [p["batch"] for p in probes if p["peak_bytes"] and p["peak_bytes"] <= 0.9 * total]
+    check(fits and picked == max(fits), f"autotune picked {picked}; probes {probes}")
+    print(f"autotune (training C, flagship, budget 0.9 × {total} B): "
+          + "; ".join(f"batch {p['batch']} peak {p['peak_bytes']} B" if p["peak_bytes"] else
+                      f"batch {p['batch']} out of memory" for p in probes)
+          + f"; picked {picked} in {seconds:.1f} s [{card_line}]")
+    return {"probes": probes, "picked": picked, "memory_bytes": total, "seconds": seconds}
+
+
 def epoch_capture_raises(cfg, device) -> str:
     """On the card ``make_train_epoch`` captures or raises: with an
     objective that waits for the host (a synchronize in the image
@@ -2117,6 +2421,9 @@ def drive_epoch(cfg, device, kernels=K12, rows: int = EPOCH_ROWS, parity_batch: 
         on_b = {**on_a, **dict.fromkeys(K3_BF16, K3_CALLS_PER_STEP)}
         out["training_b"] = epoch_training(cfg.replace(fused_pointwise=True), store, device,
                                            card_line, on_b)
+        out["training_c"] = epoch_training(cfg.replace(bn_compute_dtype="compute"), store,
+                                           device, card_line, on_a)
+        out["c_against_a"] = training_c_against_a(cfg, store, device, card_line)
     return out
 
 
@@ -2240,6 +2547,13 @@ def main() -> int:
     runs["train_epoch"] = epoch["training_a"]
     runs["train_epoch_fused_pointwise"] = epoch["training_b"]
     print(json.dumps({"epoch_training": epoch}))
+
+    # the training CLI, the main path since it was ported
+    direct = statistics.mean(epoch["c_against_a"]["C"]["ms_per_step"])
+    cli = cli_training(device, card_line, direct)
+    runs["cli"] = {"launches": cli["launches"]}
+    cli["autotune"] = cli_autotune(device, card_line)
+    print(json.dumps({"cli_training": cli}))
 
     epoch_capture_raises(train_cfg, device)
 

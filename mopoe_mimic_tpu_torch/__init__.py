@@ -23,9 +23,18 @@ Layout mirrors the JAX package:
                  card-resident ``DeviceStore`` (copies and ports of the JAX
                  package's numpy-only data modules)
   * ``train/``   the objective, the train state and optimizer, the train
-                 and eval steps and their bodies, and the epoch runners
+                 and eval steps and their bodies, the epoch runners
                  (``train/scan.py``: a CUDA graph of a step, replayed per
-                 batch of the store)
+                 batch of the store), the epoch loop (``train/loop.py``:
+                 ``run_epochs``), its callbacks (LR plateau, early stop,
+                 checkpoint cadence) and the batch autotune
+  * ``utils/``   checkpoints with resume and best-k retention, the results
+                 CSV, TensorBoard, metric meters, the run directory, the
+                 logger, the preemption guard and profiling
+  * ``experiment.py`` the experiment: datasets, data feeds, train state,
+                 run directory and sinks
+  * ``main.py``  the training CLI (``python -m mopoe_mimic_tpu_torch.main``):
+                 NaN restarts, the out-of-memory backoff, ``--load_run``
   * ``serve.py`` the inference session and its CLI
 
 Module names use the reference's ``state_dict`` keys

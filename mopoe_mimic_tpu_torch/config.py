@@ -2,8 +2,9 @@
 
 A copy of ``mopoe_mimic_tpu/config.py`` (standard library only), kept so
 that the port reads no file of the JAX package: the same fields, defaults,
-derived properties, ``from_json``, ``replace`` and ``to_dict``, so both
-packages read the same ``config.json``. tests/test_torch_port_config.py
+derived properties, ``from_json``, ``replace``, ``to_dict`` and the
+command-line parser (``parser``, ``from_namespace``, ``from_cli``), so both
+packages read the same ``config.json`` and the same command line. tests/test_torch_port_config.py
 holds the two dataclasses equal. The TPU-named knobs select the port's
 CUDA kernels on CUDA tensors: ``use_pallas_fusion`` K1, ``fused_text_head``
 K2, ``fused_pointwise`` K3.
@@ -11,9 +12,8 @@ K2, ``fused_pointwise`` K3.
 As there, one frozen dataclass replaces the reference's two-tier argparse
 flag system (mimic/utils/BaseFlags.py:4-113 and mimic/utils/flags.py:23-175). Field names match the reference flags where a counterpart
 exists, so configs written for the reference map 1:1. JSON configs overlay
-the defaults (mimic/utils/flags.py:117-128 `update_flags_with_config`);
-the JAX package's command-line parser is not copied, as nothing of the
-port reads a command line yet.
+the defaults and the command line overlays the JSON
+(mimic/utils/flags.py:117-128 `update_flags_with_config`).
 
 Derived quantities reproduced from the reference:
   * ``alpha_modalities`` = [div_weight_uniform_content, div_weight_m1_content,
@@ -27,12 +27,13 @@ Derived quantities reproduced from the reference:
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import enum
 import json
 import string
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 # the 71-character alphabet of char-level text, as mopoe_mimic_tpu/data/alphabet.py
 # builds it; only its length is needed here
@@ -424,6 +425,55 @@ class MopoeConfig:
         cfg.update(overrides)
         return cls(**cfg)
 
+    @classmethod
+    def parser(cls) -> argparse.ArgumentParser:
+        """A command line with one flag a field (booleans as
+        ``--flag true|false``) and ``--config_path``."""
+        p = argparse.ArgumentParser(description=__doc__)
+        p.add_argument("--config_path", type=str, default=None)
+        for f in dataclasses.fields(cls):
+            name = f"--{f.name}"
+            if f.type in ("bool", bool):
+                p.add_argument(name, type=_str2bool, default=None)
+            elif f.type in ("int", int, "Optional[int]"):
+                p.add_argument(name, type=int, default=None)
+            elif f.type in ("float", float, "Optional[float]"):
+                p.add_argument(name, type=float, default=None)
+            elif f.name == "mesh_shape":
+                p.add_argument(name, type=_int_tuple, default=None)
+            else:
+                p.add_argument(name, type=str, default=None)
+        return p
+
+    @classmethod
+    def from_namespace(cls, args: argparse.Namespace) -> "MopoeConfig":
+        """A config from a parsed namespace: the JSON of ``config_path``
+        (if given) under the flags that were set."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        overrides = {k: v for k, v in vars(args).items() if v is not None and k in known}
+        if getattr(args, "config_path", None):
+            return cls.from_json(args.config_path, **overrides)
+        return cls(**overrides)
+
+    @classmethod
+    def from_cli(cls, argv: Optional[Sequence[str]] = None) -> "MopoeConfig":
+        return cls.from_namespace(cls.parser().parse_args(argv))
+
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+def _str2bool(v: str) -> bool:
+    # flags.py:12-20 semantics
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def _int_tuple(v: str) -> Tuple[int, ...]:
+    return tuple(int(x) for x in v.split(",") if x)
 

@@ -5,13 +5,13 @@ Port of the resnet path of ``mopoe_mimic_tpu/models/img_networks.py``
 ConvNetworksImgMimic.py) at 64, 128 and 256 px. 2-D blocks have no conv
 bias; the shortcut convs do; the stem ``conv1`` has none; the output
 ``ConvTranspose2d(k3, s2, p1, output_padding 1)`` has one.
-``fused_pointwise`` goes to every residual block (img_networks.py:47-61,
-89-101 of the JAX package).
+``fused_pointwise`` and ``bn_dtype`` go to every residual block
+(img_networks.py:45-207 of the JAX package).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,11 +35,12 @@ class FeatureExtractorImg(nn.Module):
     """[B, C, H, W] → [B, 5·dim] (1×1 spatial)."""
 
     def __init__(self, dim: int, img_size: int = 128, image_channels: int = 1,
-                 bn_eps: float = 1e-5, fused_pointwise: bool = False):
+                 bn_eps: float = 1e-5, fused_pointwise: bool = False,
+                 bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         _check_size(img_size)
         d = dim
-        kw = dict(bn_eps=bn_eps, fused_pointwise=fused_pointwise)
+        kw = dict(bn_eps=bn_eps, fused_pointwise=fused_pointwise, bn_dtype=bn_dtype)
         self.conv1 = nn.Conv2d(image_channels, d, 3, 2, 1, bias=False)
         self.resblock_1 = block(ResidualBlock2dConv(d, 2 * d, 4, 2, 1, **kw))
         self.resblock_2 = block(ResidualBlock2dConv(2 * d, 3 * d, 4, 2, 1, **kw))
@@ -64,11 +65,12 @@ class DataGeneratorImg(nn.Module):
     """[B, 5·dim, 1, 1] → [B, image_channels, img_size, img_size]."""
 
     def __init__(self, dim: int, img_size: int = 128, image_channels: int = 1,
-                 bn_eps: float = 1e-5, fused_pointwise: bool = False):
+                 bn_eps: float = 1e-5, fused_pointwise: bool = False,
+                 bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         _check_size(img_size)
         d = dim
-        kw = dict(bn_eps=bn_eps, fused_pointwise=fused_pointwise)
+        kw = dict(bn_eps=bn_eps, fused_pointwise=fused_pointwise, bn_dtype=bn_dtype)
         layers = [
             block(ResidualBlock2dTransposeConv(5 * d, 4 * d, 4, 1, 0, **kw)),
             block(ResidualBlock2dTransposeConv(4 * d, 3 * d, 4, 2, 1, **kw)),
@@ -90,10 +92,11 @@ class EncoderImg(nn.Module):
     """Image → (mu, logvar) of the content latent."""
 
     def __init__(self, dim: int, class_dim: int, img_size: int = 128,
-                 image_channels: int = 1, bn_eps: float = 1e-5, fused_pointwise: bool = False):
+                 image_channels: int = 1, bn_eps: float = 1e-5, fused_pointwise: bool = False,
+                 bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.feature_extractor = FeatureExtractorImg(dim, img_size, image_channels, bn_eps,
-                                                     fused_pointwise)
+                                                     fused_pointwise, bn_dtype)
         self.feature_compressor = LinearFeatureCompressor(5 * dim, class_dim)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -105,11 +108,12 @@ class DecoderImg(nn.Module):
     fixed and applied by the likelihood, ConvNetworksImgMimic.py:54)."""
 
     def __init__(self, dim: int, class_dim: int, img_size: int = 128,
-                 image_channels: int = 1, bn_eps: float = 1e-5, fused_pointwise: bool = False):
+                 image_channels: int = 1, bn_eps: float = 1e-5, fused_pointwise: bool = False,
+                 bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.feature_generator = nn.Linear(class_dim, 5 * dim)
         self.img_generator = DataGeneratorImg(dim, img_size, image_channels, bn_eps,
-                                              fused_pointwise)
+                                              fused_pointwise, bn_dtype)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         feats = self.feature_generator(z)

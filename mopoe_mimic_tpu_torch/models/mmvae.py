@@ -26,7 +26,10 @@ of the mask; the subsets that enter the joint, a range of rows
 (``ops/fusion.passing_range``); the mixture's row index, on the device
 (``ops/fusion.mixture_component_selection``).
 ``cfg.fused_pointwise`` builds every residual block with the fused BN →
-ReLU → 1×1 conv (K3) for train mode (mmvae.py:83, 102, 119, 134).
+ReLU → 1×1 conv (K3) for train mode (mmvae.py:83, 102, 119, 134), and
+``cfg.bn_compute_dtype`` gives every BatchNorm its dtype (mmvae.py:60:
+``"compute"`` the compute dtype, else a dtype's name; ``models/resblocks.py``).
+``remat`` other than ``"none"`` is refused: nothing is rematerialised.
 Factorized (style) representations and the char text encoding are not
 ported yet.
 
@@ -43,7 +46,7 @@ from torch import nn
 
 from mopoe_mimic_tpu_torch.config import Method, MopoeConfig
 from mopoe_mimic_tpu_torch.models.img_networks import DecoderImg, EncoderImg
-from mopoe_mimic_tpu_torch.models.resblocks import at_least_f32
+from mopoe_mimic_tpu_torch.models.resblocks import at_least_f32, bn_dtype_of
 from mopoe_mimic_tpu_torch.models.text_networks import DecoderText, EncoderText
 from mopoe_mimic_tpu_torch.ops import fusion as F
 from mopoe_mimic_tpu_torch.ops import kl as KL
@@ -67,26 +70,23 @@ class MMVae(nn.Module):
             raise NotImplementedError("only word text encoding is ported")
         if cfg.feature_extractor_img != "resnet":
             raise NotImplementedError("only the resnet image feature extractor is ported")
-        if cfg.bn_compute_dtype != "float32":
-            raise NotImplementedError(
-                f"bn_compute_dtype={cfg.bn_compute_dtype!r} is not ported: every BatchNorm of "
-                "the port runs in float32")
         if cfg.remat != "none":
             raise NotImplementedError(f"remat={cfg.remat!r} is not ported")
         self.cfg = cfg
+        bn_dtype = bn_dtype_of(cfg)
         for m in cfg.modality_names:
             suffix = MODULE_SUFFIX[m]
             if m == "text":
                 enc = EncoderText(cfg.DIM_text, cfg.class_dim, cfg.vocab_size,
-                                  cfg.len_sequence, cfg.bn_eps, cfg.fused_pointwise)
+                                  cfg.len_sequence, cfg.bn_eps, cfg.fused_pointwise, bn_dtype)
                 dec = DecoderText(cfg.DIM_text, cfg.class_dim, cfg.num_features,
                                   cfg.len_sequence, cfg.text_gen_lastlayer, cfg.bn_eps,
-                                  cfg.fused_pointwise)
+                                  cfg.fused_pointwise, bn_dtype)
             else:
                 enc = EncoderImg(cfg.DIM_img, cfg.class_dim, cfg.img_size,
-                                 cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise)
+                                 cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise, bn_dtype)
                 dec = DecoderImg(cfg.DIM_img, cfg.class_dim, cfg.img_size,
-                                 cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise)
+                                 cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise, bn_dtype)
             setattr(self, f"encoder_{suffix}", enc)
             setattr(self, f"decoder_{suffix}", dec)
 

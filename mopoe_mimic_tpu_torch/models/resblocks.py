@@ -10,20 +10,35 @@ dropout, combined as ``a · shortcut(x) + b · out`` where the shortcut is a
 ``bn1``, ``conv1``, ``bn2``, ``conv2`` and ``downsample.{0,1}`` /
 ``upsample.{0,1}``.
 
-BatchNorm runs in float32 whatever the autocast dtype (the JAX package's
-``bn_compute_dtype="float32"``): its input is cast up (``at_least_f32``:
-a float64 model, the port's oracle runs, stays float64), and autocast then
-lowers only the convolutions.
+``bn_dtype`` (``cfg.bn_compute_dtype``, resolved by ``bn_dtype_of``) is the
+dtype each BatchNorm takes its input in, and so the dtype of its normalize,
+affine and output: by default float32 whatever the autocast dtype (the
+input cast up by ``at_least_f32``: a float64 model, the port's oracle runs,
+stays float64), and autocast then lowers only the convolutions. Under
+``"compute"`` with bfloat16 autocast each BN takes and gives bfloat16, with
+float32 weight and bias; its batch and running statistics stay float32
+(resblocks.py:227-255 of the JAX package), and so does the weight's
+gradient. It then differs from JAX in its rounding: PyTorch's BatchNorm
+normalizes in float32 and rounds once to bfloat16, where JAX rounds after
+each bfloat16 operation of the normalize and the affine. (On the card
+PyTorch runs a bfloat16 BatchNorm on ATen's own CUDA kernels, not on
+cuDNN's, which the float32 one uses.) A block's output
+``a · residual + b · h`` is then bfloat16, and so is the next block's
+input.
 
 ``fused_pointwise=True`` (``cfg.fused_pointwise``, resblocks.py:275-311 of
 the JAX package) computes ``bn1 → relu → conv1`` in train mode as one fused
 op on the same parameters (``ops/pointwise.py``: the CUDA kernels K3 on the
 card, the plain versions on the CPU), which also advances ``bn1``'s running
-statistics as ``nn.BatchNorm`` would. Eval mode runs the modules. The
-parameter keys do not change.
+statistics as ``nn.BatchNorm`` would; it normalizes in float32 whatever
+``bn_dtype``, as the Pallas op does. Eval mode runs the modules, ``bn1``'s
+output, and so the ReLU, in ``bn_dtype`` (resblocks.py:289 of the JAX
+package). The parameter keys do not change.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -36,6 +51,29 @@ A_SKIP, B_SKIP = 2.0, 0.3
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     """x in float32, or left in float64."""
     return x if x.dtype == torch.float64 else x.float()
+
+
+def bn_input(x: torch.Tensor, bn_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """x in the dtype a BatchNorm of ``bn_dtype`` takes: float32 (float64
+    left as is) for None or float32, else ``bn_dtype``."""
+    if bn_dtype is None or bn_dtype == torch.float32:
+        return at_least_f32(x)
+    return x.to(bn_dtype)
+
+
+_FLOAT_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                 "float32": torch.float32, "float64": torch.float64}
+
+
+def bn_dtype_of(cfg) -> torch.dtype:
+    """``cfg.bn_compute_dtype`` as a dtype (mmvae.py:60 of the JAX package):
+    ``"compute"`` is the compute dtype, any other value a float dtype's
+    name."""
+    name = cfg.compute_dtype if cfg.bn_compute_dtype == "compute" else cfg.bn_compute_dtype
+    if name not in _FLOAT_DTYPES:
+        raise ValueError(f"bn_compute_dtype={cfg.bn_compute_dtype!r} (compute_dtype="
+                         f"{cfg.compute_dtype!r}): not a float dtype of {sorted(_FLOAT_DTYPES)}")
+    return _FLOAT_DTYPES[name]
 
 
 def compute_dtype_of(x: torch.Tensor) -> torch.dtype:
@@ -64,9 +102,11 @@ class _ResidualBlock(nn.Module):
         dropout: float = 0.5,
         bn_eps: float = 1e-5,
         fused_pointwise: bool = False,
+        bn_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.fused_pointwise, self.transpose = fused_pointwise, transpose
+        self.bn_dtype = bn_dtype
         bn = nn.BatchNorm2d if spatial == 2 else nn.BatchNorm1d
         if transpose:
             conv = nn.ConvTranspose2d if spatial == 2 else nn.ConvTranspose1d
@@ -95,7 +135,7 @@ class _ResidualBlock(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """bn1 → relu → conv1: fused in train mode under ``fused_pointwise``."""
         if not (self.fused_pointwise and self.training):
-            return self.conv1(torch.relu(self.bn1(at_least_f32(x))))
+            return self.conv1(torch.relu(self.bn1(bn_input(x, self.bn_dtype))))
         bn = self.bn1
         y, _, _ = fused_bn_relu_pointwise(
             x, bn.weight, bn.bias, conv1x1_matrix(self.conv1.weight, self.transpose),
@@ -106,10 +146,10 @@ class _ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.dropout1(self._head(x))
-        h = self.conv2(torch.relu(self.bn2(at_least_f32(h))))
+        h = self.conv2(torch.relu(self.bn2(bn_input(h, self.bn_dtype))))
         h = self.dropout2(h)
         conv, bn = getattr(self, self._shortcut_name)
-        residual = bn(at_least_f32(conv(x)))
+        residual = bn(bn_input(conv(x), self.bn_dtype))
         return self.a * residual + self.b * h
 
 

@@ -6,13 +6,13 @@ Port of the word path of ``mopoe_mimic_tpu/models/text_networks.py``
 ends in a plain ``Conv1d(k1)`` to the vocabulary, not a transposed conv;
 ``prehead=True`` stops before it (text_networks.py:162-211 of the JAX
 package).
-``fused_pointwise`` goes to every residual block (text_networks.py:46-312
-of the JAX package). The char-1024 path is not ported yet.
+``fused_pointwise`` and ``bn_dtype`` go to every residual block
+(text_networks.py:44-312 of the JAX package). The char-1024 path is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -38,7 +38,8 @@ class FeatureExtractorTextWord(nn.Module):
     """Token ids [B, L] → [B, 5·dim]."""
 
     def __init__(self, dim: int, vocab_size: int, len_sequence: int = LEN_SEQUENCE,
-                 bn_eps: float = 1e-5, fused_pointwise: bool = False):
+                 bn_eps: float = 1e-5, fused_pointwise: bool = False,
+                 bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         _check_len(len_sequence)
         d = dim
@@ -50,7 +51,7 @@ class FeatureExtractorTextWord(nn.Module):
         for i in range(1, 7):
             setattr(self, f"resblock_{i}", block(
                 ResidualBlock1dConv(widths[i - 1], widths[i], 4, 2, 1, bn_eps=bn_eps,
-                                    fused_pointwise=fused_pointwise)))
+                                    fused_pointwise=fused_pointwise, bn_dtype=bn_dtype)))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         ids = ids.long()
@@ -68,7 +69,7 @@ class DataGeneratorTextWord(nn.Module):
 
     def __init__(self, dim: int, vocab_size: int, len_sequence: int = LEN_SEQUENCE,
                  last_layer: str = "softmax", bn_eps: float = 1e-5,
-                 fused_pointwise: bool = False):
+                 fused_pointwise: bool = False, bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         _check_len(len_sequence)
         if last_layer not in ("softmax", "sigmoid", "none"):
@@ -79,7 +80,8 @@ class DataGeneratorTextWord(nn.Module):
         geometry = [(4, 1, 0)] + [(4, 2, 1)] * 5
         layers = [
             block(ResidualBlock1dTransposeConv(widths[i], widths[i + 1], *geometry[i],
-                                               bn_eps=bn_eps, fused_pointwise=fused_pointwise))
+                                               bn_eps=bn_eps, fused_pointwise=fused_pointwise,
+                                               bn_dtype=bn_dtype))
             for i in range(6)
         ]
         layers.append(nn.Conv1d(d, vocab_size, 1, 1, 0, bias=True))
@@ -104,10 +106,10 @@ class EncoderText(nn.Module):
 
     def __init__(self, dim: int, class_dim: int, vocab_size: int,
                  len_sequence: int = LEN_SEQUENCE, bn_eps: float = 1e-5,
-                 fused_pointwise: bool = False):
+                 fused_pointwise: bool = False, bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.feature_extractor = FeatureExtractorTextWord(dim, vocab_size, len_sequence, bn_eps,
-                                                          fused_pointwise)
+                                                          fused_pointwise, bn_dtype)
         self.feature_compressor = LinearFeatureCompressor(5 * dim, class_dim)
 
     def forward(self, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -119,11 +121,12 @@ class DecoderText(nn.Module):
 
     def __init__(self, dim: int, class_dim: int, vocab_size: int,
                  len_sequence: int = LEN_SEQUENCE, last_layer: str = "softmax",
-                 bn_eps: float = 1e-5, fused_pointwise: bool = False):
+                 bn_eps: float = 1e-5, fused_pointwise: bool = False,
+                 bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.feature_generator = nn.Linear(class_dim, 5 * dim)
         self.text_generator = DataGeneratorTextWord(dim, vocab_size, len_sequence,
-                                                    last_layer, bn_eps, fused_pointwise)
+                                                    last_layer, bn_eps, fused_pointwise, bn_dtype)
 
     def forward(self, z: torch.Tensor, prehead: bool = False) -> torch.Tensor:
         feats = self.feature_generator(z)

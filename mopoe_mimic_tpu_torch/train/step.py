@@ -22,9 +22,9 @@ BN → ReLU → 1×1 conv as one fused op in train mode (``ops/pointwise.py``:
 the CUDA kernels K3 on the card, the plain versions on the CPU), built
 into the model (``models/mmvae.py``); the eval step runs the modules.
 ``compute_dtype="bfloat16"`` runs the step under
-``torch.autocast(bfloat16)``; BatchNorm stays float32
-(``models/resblocks.py``), the fused head's inputs and K3's products take
-bfloat16.
+``torch.autocast(bfloat16)``; BatchNorm runs in ``cfg.bn_compute_dtype``
+(float32 by default, bfloat16 under ``"compute"``: ``models/resblocks.py``),
+the fused head's inputs and K3's products take bfloat16.
 """
 
 from __future__ import annotations
