@@ -66,7 +66,7 @@ any failure of which exits non-zero:
      against the unfused cuDNN composition (the block's bn1 → relu → conv1
      modules), forward and forward + backward; the fused op's statistics
      (``pointwise_stats`` and its finalize, with bn1's running update) at
-     every K3_CASES shape, x float32 and bfloat16: mean and var within
+     every K3 case's shape, x float32 and bfloat16: mean and var within
      1e-5·|ref| of a float64 oracle (the mean's floor 1e-6·sqrt(var)), inv
      within 1 ulp of 1/sqrt(var + eps) of the kernel's var, the running
      buffers within rtol 1e-6 (atol 1e-6·max|ref|) of the plain update, two
@@ -159,10 +159,36 @@ any failure of which exits non-zero:
      C's ``make_train_epoch`` called directly; ``autotune_batch_size`` from
      256: each probe's peak and the batch picked. Last, an objective that
      waits for the host makes ``make_train_epoch`` raise (no eager
-     fallback), the state unchanged.
+     fallback), the state unchanged;
+ 11. char-1024 text and serving from a run directory, at the flagship's
+     full width: ``python -m mopoe_mimic_tpu_torch.main --text_encoding
+     char`` (training C's diet, batch 256, 2 epochs × 8 steps of a
+     2048-row store, a checkpoint each epoch, under ``build/char_runs``) in
+     a process of its own exits 0 with its run directory; ``python -m
+     mopoe_mimic_tpu_torch.serve --run_dir RUN --num_samples 16`` on it and
+     on phase 10's word run exits 0, serves the checkpoint manager's best
+     epoch (else its latest) and writes ``PA.png`` and ``Lateral.png`` (a
+     PNG signature, the grid's size) and ``text_probs.npy`` [16, L,
+     classes]; ``InferenceSession(run_dir=...)`` in this process restores
+     that epoch, its ``encode`` of 40 rows bit for bit a state_dict
+     session's, the slice's endpoints checked as in phase 4,
+     ``text_array`` → ``cond_generate`` → ``decode_text`` giving 8
+     strings, K1 launched and K2, K3 not, each endpoint's p50 at buckets 8
+     and 128; one float32 char train step on the card against one on the
+     CPU (phase 8's tolerances, K1 launched, K2 not; at the first batch
+     seed from 14 at which a float32 step on the CPU moves by at most
+     2.5e-4 under one-ulp nudges of the images: a point not within
+     float32's rounding of a kink, a ReLU's or |x − loc|'s); char C against word
+     C through the graphed epoch (2048-row stores): the launches, K1
+     forward and backward once a replayed step and K2 never under char,
+     one synchronising operation an epoch, both in turns (word char char
+     word, 20 steps a turn, CUDA events) with a 3-step profile of each.
+     Phase 3's K3 cases include the char networks' largest 1-D block
+     (``char_block_shape``: C 64 at length 512).
 
 Phase 9's numbers are printed as one JSON line ``{"epoch_training": ...}``,
-phase 10's as ``{"cli_training": ...}``.
+phase 10's as ``{"cli_training": ...}``, phase 11's as
+``{"char_and_serving": ...}``.
 The last lines are a JSON object of the kernels (each with its launches on
 its path, a replayed step's launches from phase 9's trace, error, time,
 plain time, the least time the card could take for its bytes, operations
@@ -202,6 +228,7 @@ from mopoe_mimic_tpu_torch.train.autotune import autotune_batch_size, step_memor
 from mopoe_mimic_tpu_torch.train.scan import epoch_index_matrix, make_train_epoch
 from mopoe_mimic_tpu_torch.train.state import create_train_state
 from mopoe_mimic_tpu_torch.train.step import loss_terms, make_train_step
+from mopoe_mimic_tpu_torch.utils.checkpoints import CheckpointManager
 from mopoe_mimic_tpu_torch.utils.exceptions import DeviceOutOfMemory
 
 ROOT = Path(__file__).resolve().parent
@@ -897,6 +924,16 @@ K3_CASES = (
 K3_TIMED = (1, 3)  # the largest block and a C = 320 block
 
 
+@functools.lru_cache(maxsize=None)
+def k3_cases() -> tuple:
+    """K3_CASES and the char networks' largest 1-D residual block at the
+    flagship's widths (``char_block_shape``: C 64 at length 512, the char
+    encoder's resblock_1 on the stem's bfloat16 output), batch 256, with
+    its conv bias."""
+    C, S = char_block_shape(MopoeConfig.from_json(str(FLAGSHIP)))
+    return K3_CASES + ((256, C, C, (S,), True, True),)
+
+
 def k3_case(device, B, C, Co, spatial, bias, transpose, x_dtype, w_dtype, seed):
     """Seeded K3 inputs as a block hands them to the kernels: x3 [B, C, S],
     gamma, beta, its batch statistics (mean, inv), W [C, Co] taken from a
@@ -1180,7 +1217,7 @@ def k3_against_plain(device: torch.device) -> dict:
 
     names = ("y", "dx", "dW", "dcb", "dgamma", "dbeta")
     worst = dict.fromkeys(K3, 0.0)
-    for i, (B, C, Co, spatial, bias, x_bf16) in enumerate(K3_CASES):
+    for i, (B, C, Co, spatial, bias, x_bf16) in enumerate(k3_cases()):
         for transpose in (False, True):
             for w_dtype in (torch.float32, torch.bfloat16):
                 # bfloat16 W with bfloat16 x at every shape (the blocks after a
@@ -1267,10 +1304,11 @@ def stats_finalize_plain(part, counts, eps):
 
 def k3_stats_against_plain(device: torch.device, card_line: str) -> dict:
     """``pointwise_stats`` (partials + finalize, with bn1's running update)
-    at every K3_CASES shape, x float32 and bfloat16, each case run twice
-    from the same buffers and bitwise equal: mean and var against a float64
-    oracle, |Δ| ≤ 1e-5·|ref| (the mean's floor 1e-6·sqrt(var): a mean near
-    zero is known to its spread's scale); inv against 1 / sqrt(var + eps) of
+    at every K3 case's shape (``k3_cases``), x float32 and bfloat16, each
+    case run twice from the same buffers and bitwise equal: mean and var
+    against a float64 oracle, |Δ| ≤ 1e-5·|ref| (the mean's floor
+    1e-6·sqrt(var): a mean near zero is known to its spread's scale); inv
+    against 1 / sqrt(var + eps) of
     the kernel's own var within 1 ulp; the running buffers within rtol 1e-6
     (atol 1e-6·max|ref|: a buffer near zero) of ``update_running_stats``
     from the kernel's statistics. Then timed at
@@ -1279,7 +1317,7 @@ def k3_stats_against_plain(device: torch.device, card_line: str) -> dict:
     took them before) and against ``torch.var_mean``, the one PyTorch call
     computing mean and variance (after ``.float()`` for bfloat16 x)."""
     eps, worst = 1e-5, 0.0
-    for i, (B, C, _, spatial, _, _) in enumerate(K3_CASES):
+    for i, (B, C, _, spatial, _, _) in enumerate(k3_cases()):
         for x_dtype in (torch.float32, torch.bfloat16):
             x3 = k3_case(device, B, C, C, spatial, False, False, x_dtype, torch.bfloat16,
                          seed=80 + i)[0]
@@ -1452,13 +1490,26 @@ def random_state_dict(cfg, seed: int = 0) -> dict:
     return sd
 
 
+def text_ids(cfg, n: int, rng) -> np.ndarray:
+    """Random text ids [n, L]: word ids, or char ids of the alphabet."""
+    return rng.integers(0, cfg.num_features, (n, cfg.len_sequence))
+
+
+def as_text_input(cfg, ids: np.ndarray) -> np.ndarray:
+    """Text ids → the model's text input: word ids as they are, char ids as
+    a float32 one-hot [n, L, 71] (the JAX layout)."""
+    if cfg.text_encoding == "char":
+        return np.eye(cfg.num_features, dtype=np.float32)[ids]
+    return ids
+
+
 def request(cfg, n: int, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     s, c = cfg.img_size, cfg.image_channels
     return {
         "PA": rng.random((n, s, s, c), dtype=np.float32),
         "Lateral": rng.random((n, s, s, c), dtype=np.float32),
-        "text": rng.integers(0, cfg.vocab_size, (n, cfg.len_sequence)).astype(np.int32),
+        "text": as_text_input(cfg, text_ids(cfg, n, rng).astype(np.int32)),
     }
 
 
@@ -1479,7 +1530,8 @@ def check_slice(cfg, outs: dict, n_encode: int = 40, n_generate: int = 16,
                 n_cond: int = 8) -> None:
     """Shapes as the JAX session gives them, finite values, probabilities
     summing to one, the compact wire types, determinism for a seed."""
-    s, c, L, V, D = cfg.img_size, cfg.image_channels, cfg.len_sequence, cfg.vocab_size, cfg.class_dim
+    s, c, L, D = cfg.img_size, cfg.image_channels, cfg.len_sequence, cfg.class_dim
+    V = cfg.num_features
     enc = outs["encode"]
     check(set(enc["subsets"]) == SUBSETS, f"encode subsets {sorted(enc['subsets'])}")
     for key, pair in list(enc["subsets"].items()) + [("joint", enc["joint"])]:
@@ -1542,7 +1594,9 @@ def p50_ms(fn, calls: int = 20, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def endpoint_timings(sess: InferenceSession, card_line: str) -> None:
+def endpoint_timings(sess: InferenceSession, card_line: str) -> dict:
+    """p50 of each endpoint at buckets 8 and 128: {"name bucket": ms}."""
+    out = {}
     for bucket in (8, 128):
         batch = request(sess.cfg, bucket, seed=13)
         for name, fn in (
@@ -1550,8 +1604,10 @@ def endpoint_timings(sess: InferenceSession, card_line: str) -> None:
             ("generate compact", lambda: sess.generate(bucket, seed=3, compact=True)),
             ("cond_generate compact", lambda: sess.cond_generate(batch, seed=3, compact=True)),
         ):
-            print(f"p50 {name} bucket {bucket} ({sess.cfg.compute_dtype}): "
-                  f"{p50_ms(fn):.3f} ms [{card_line}]")
+            ms = out[f"{name} {bucket}"] = p50_ms(fn)
+            print(f"p50 {name} bucket {bucket} ({sess.cfg.text_encoding} text, "
+                  f"{sess.cfg.compute_dtype}): {ms:.3f} ms [{card_line}]")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1570,13 +1626,14 @@ def reset_launch_counts() -> None:
 
 def training_batch(cfg, n: int, seed: int, device) -> dict:
     """A seeded batch in the port's layouts: uniform images [n, C, H, W]
-    and random token ids [n, L], on ``device``."""
+    and random token ids [n, L] (char: their one-hot [n, L, 71]), on
+    ``device``."""
     rng = np.random.default_rng(seed)
     s, c = cfg.img_size, cfg.image_channels
     arrays = {
         "PA": rng.random((n, c, s, s), dtype=np.float32),
         "Lateral": rng.random((n, c, s, s), dtype=np.float32),
-        "text": rng.integers(0, cfg.vocab_size, (n, cfg.len_sequence)).astype(np.int64),
+        "text": as_text_input(cfg, text_ids(cfg, n, rng).astype(np.int64)),
     }
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
@@ -1800,7 +1857,7 @@ def one_step_grads(cfg, sd, device, batch) -> tuple:
 KERNEL_ADJACENT = ("decoder_text.text_generator.generator.6.", ".feature_compressor.")
 
 
-def gpu_step_against_cpu(cfg, device, kernels=K12, n: int = 8) -> dict:
+def gpu_step_against_cpu(cfg, device, kernels=K12, n: int = 8, seed: int = 14) -> dict:
     """One float32 train step through the kernels on the card against one
     through the plain versions on the CPU, same weights and batch.
 
@@ -1818,7 +1875,7 @@ def gpu_step_against_cpu(cfg, device, kernels=K12, n: int = 8) -> dict:
     cfg64 = cfg.replace(compute_dtype="float64", param_dtype="float64")
     torch.manual_seed(0)
     sd = MMVae(cfg).state_dict()
-    batch = training_batch(cfg, n, seed=14, device="cpu")
+    batch = training_batch(cfg, n, seed=seed, device="cpu")
     before = launch_counts()
     got, g_gpu = one_step_grads(cfg, sd, device, batch)
     check(all(launch_counts()[k] > before[k] for k in kernels if k not in BF16_ONLY),
@@ -1884,7 +1941,8 @@ def epoch_store(cfg, device, rows: int = EPOCH_ROWS) -> tuple:
     """A ``SyntheticMimic`` of ``rows`` rows (seed 0) in a ``DeviceStore``:
     (store, its report: bytes, growth of the card's allocated memory, and a
     gathered batch checked against the host's columns: images equal to the
-    quantised rows times float32(1/255) bit for bit, text ids equal)."""
+    quantised rows times float32(1/255) bit for bit, word ids equal, char
+    text the one-hot of the host column's argmax)."""
     allocated = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
     t0 = time.perf_counter()
     dataset = SyntheticMimic(cfg, seed=0, length=rows)
@@ -1898,9 +1956,13 @@ def epoch_store(cfg, device, rows: int = EPOCH_ROWS) -> tuple:
         u8 = np.round(np.clip(dataset.arrays[k][idx], 0.0, 1.0) * 255.0).astype(np.uint8)
         ref = u8.transpose(0, 3, 1, 2).astype(np.float32) * np.float32(1 / 255)
         check(batch[k].cpu().numpy().tobytes() == ref.tobytes(), f"store gather {k} differs")
-    check(np.array_equal(batch["text"].cpu().numpy(), dataset.arrays["text"][idx]),
-          "store gather text differs")
-    expected = rows * (2 * cfg.img_size ** 2 * cfg.image_channels + 4 * cfg.len_sequence)
+    text = dataset.arrays["text"][idx]
+    if cfg.text_encoding == "char":  # one byte a character on the card
+        text, text_bytes = as_text_input(cfg, np.argmax(text, axis=-1)), cfg.len_sequence
+    else:
+        text_bytes = 4 * cfg.len_sequence
+    check(np.array_equal(batch["text"].cpu().numpy(), text), "store gather text differs")
+    expected = rows * (2 * cfg.img_size ** 2 * cfg.image_channels + text_bytes)
     check(store.nbytes == expected, f"store holds {store.nbytes} B, not {expected}")
     return store, {"rows": rows, "bytes": store.nbytes, "allocated_bytes": grown,
                    "build_s": seconds}
@@ -2216,7 +2278,8 @@ def check_cli_run(root: Path, epochs: int, argv: list) -> dict:
     parsed = MopoeConfig.from_cli(argv)
     want = {k: getattr(parsed, k) for k in (
         "bn_compute_dtype", "fused_text_head", "device_resident_data", "batch_size",
-        "synthetic_length", "DIM_img", "img_size", "compute_dtype", "seed")}
+        "synthetic_length", "DIM_img", "img_size", "compute_dtype", "seed", "text_encoding",
+        "len_sequence")}
     check(saved["bn_compute_dtype"] == "compute" and all(saved[k] == v for k, v in want.items()),
           f"{run.name}/config.json: {({k: saved[k] for k in want})}, not {want}")
     kept = sorted(int(p.name) for p in (run / "checkpoints").iterdir() if p.name.isdigit())
@@ -2367,6 +2430,329 @@ def cli_autotune(device, card_line: str) -> dict:
     return {"probes": probes, "picked": picked, "memory_bytes": total, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# char-1024 text, and serving from a run directory
+# ---------------------------------------------------------------------------
+
+CHAR_ROOT = ROOT / "build" / "char_runs"  # run directories of phase 11 (git-ignored)
+SERVE_SAMPLES, GRID_PER_ROW = 16, 8  # the serve CLI's samples, a grid row's images
+REPORTS = ("no acute cardiopulmonary process.", "the lungs are clear. no pleural effusion.",
+           "mild cardiomegaly, no focal consolidation", "stable appearance of the chest",
+           "small left pleural effusion; atelectasis at the left base",
+           "heart size normal. no pneumothorax.", "interval removal of the right picc line",
+           "ET tube 4 cm above the carina")
+
+
+def char_cli_argv(root: Path, *extra) -> list:
+    """``cli_argv`` (training C at the flagship) with char-1024 text."""
+    return cli_argv(root, "--text_encoding", "char", *extra)
+
+
+def char_cli_training(device, card_line: str = "", extra: tuple = ()) -> dict:
+    """Phase 11's training: ``python -m mopoe_mimic_tpu_torch.main
+    --text_encoding char`` in a process of its own, training C's diet at the
+    flagship (``fused_text_head``, which char ignores), exit 0 with its two
+    epoch lines, ``config.json`` (char, length 1024), a checkpoint each
+    epoch and the CSV row. ``extra`` flags: the CPU rehearsal's widths."""
+    device = torch.device(device)
+    shutil.rmtree(CHAR_ROOT, ignore_errors=True)
+    argv = char_cli_argv(CHAR_ROOT / "train", *extra)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mopoe_mimic_tpu_torch.main", *argv,
+                           "--device", device.type], cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m mopoe_mimic_tpu_torch.main --text_encoding char "
+          f"exited {proc.returncode}: {proc.stderr[-3000:]}")
+    epoch_lines = [line for line in proc.stderr.splitlines() if "train_loss=" in line]
+    check(len(epoch_lines) == CLI_EPOCHS, f"the char CLI's epoch lines: {epoch_lines}")
+    run = check_cli_run(CHAR_ROOT / "train", CLI_EPOCHS, argv)
+    print(f"python -m mopoe_mimic_tpu_torch.main --text_encoding char (training C, flagship "
+          f"width, char-1024, {CLI_ROWS}-row store, {CLI_EPOCHS} epochs × {CLI_STEPS} steps): "
+          f"exit 0 in {wall:.1f} s; " + "; ".join(line.split(" INFO ")[-1] for line in
+                                                  epoch_lines)
+          + f"; {run['run'].name}: config.json, checkpoints 0-{CLI_EPOCHS - 1} "
+          f"({run['checkpoint_bytes']} B each), its CSV row [{card_line}]")
+    return {"run": run["run"], "subprocess_s": wall, "checkpoint_bytes": run["checkpoint_bytes"]}
+
+
+def png_size(path: Path) -> tuple:
+    """(width, height) of a PNG file, from its signature and IHDR chunk."""
+    head = path.read_bytes()[:24]
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR", f"{path}: not a PNG")
+    return tuple(int.from_bytes(head[i:i + 4], "big") for i in (16, 20))
+
+
+def served_epoch(run: Path) -> int:
+    """The epoch a session must serve from ``run``: the checkpoint manager's
+    best by test loss, else its latest (the JAX session's rule)."""
+    mgr = CheckpointManager(str(run / "checkpoints"))
+    best = mgr.best_epoch()
+    return mgr.latest_epoch() if best is None else best
+
+
+def serve_cli(run: Path, device, card_line: str = "") -> dict:
+    """``python -m mopoe_mimic_tpu_torch.serve --run_dir RUN --num_samples
+    16`` in a process of its own: exit 0, the served epoch the manager's
+    pick, ``PA.png`` and ``Lateral.png`` PNGs of the grid's size, and
+    ``text_probs.npy`` [16, L, classes] of finite rows summing to 1."""
+    device = torch.device(device)
+    cfg = MopoeConfig.from_json(str(run / "config.json"))
+    out = run / "serving"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mopoe_mimic_tpu_torch.serve", "--run_dir",
+                           str(run), "--num_samples", str(SERVE_SAMPLES), "--device",
+                           device.type], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m mopoe_mimic_tpu_torch.serve --run_dir {run.name} "
+          f"exited {proc.returncode}: {proc.stderr[-3000:]}")
+    epoch = re.search(r"serving epoch (\d+) from", proc.stderr)
+    check(epoch is not None and int(epoch[1]) == served_epoch(run),
+          f"the serve CLI served {epoch and epoch[1]}, not epoch {served_epoch(run)}")
+    rows = -(-SERVE_SAMPLES // GRID_PER_ROW)
+    for m in ("PA", "Lateral"):
+        size = png_size(out / f"{m}.png")
+        check(size == (GRID_PER_ROW * cfg.img_size, rows * cfg.img_size), f"{m}.png: {size}")
+    probs = np.load(out / "text_probs.npy")
+    check(probs.shape == (SERVE_SAMPLES, cfg.len_sequence, cfg.num_features)
+          and np.isfinite(probs).all() and np.abs(probs.sum(-1) - 1.0).max() < 1e-3,
+          f"text_probs.npy: {probs.shape}")
+    print(f"python -m mopoe_mimic_tpu_torch.serve --run_dir ({cfg.text_encoding} text, epoch "
+          f"{epoch[1]}, {SERVE_SAMPLES} samples): exit 0 in {wall:.1f} s; PA.png and "
+          f"Lateral.png {size[0]}×{size[1]}, text_probs.npy {list(probs.shape)} [{card_line}]")
+    return {"seconds": wall, "epoch": int(epoch[1]), "png_size": list(size),
+            "text_probs_shape": list(probs.shape)}
+
+
+def serve_run_dir(run: Path, device, card_line: str = "", timed: bool = True) -> dict:
+    """A session on a run directory, in this process: the restored epoch the
+    manager's best or latest; ``encode`` of 40 rows bit for bit that of a
+    session on the same checkpoint's state_dict; the slice's endpoints
+    (``drive_slice``: ``generate`` of 16 twice identical, ``cond_generate``
+    of 8 full and compact) checked as phase 4 checks them; ``text_array``
+    → ``cond_generate`` → ``decode_text`` giving 8 strings, and
+    ``decode_text`` of ``text_array`` giving the reports back; K1 launched
+    and K2, K3 not (on the card); with ``timed``, each endpoint's p50 at
+    buckets 8 and 128."""
+    device = torch.device(device)
+    reset_launch_counts()
+    sess = InferenceSession(run_dir=str(run), device=device)
+    cfg = sess.cfg
+    check(sess.epoch == served_epoch(run), f"session served epoch {sess.epoch}, not "
+                                           f"{served_epoch(run)}")
+    _, payload = CheckpointManager(str(run / "checkpoints")).read(sess.epoch)
+    direct = InferenceSession(cfg, state_dict=payload["model"], device=device)
+    batch = request(cfg, 40, seed=10)
+    got, ref = sess.encode(batch), direct.encode(batch)
+    pairs = [got["joint"]] + [got["subsets"][k] for k in SUBSETS]
+    refs = [ref["joint"]] + [ref["subsets"][k] for k in SUBSETS]
+    check(all(np.array_equal(a, b) for p, r in zip(pairs, refs) for a, b in zip(p, r)),
+          "encode of the run-directory session differs from the state_dict session's")
+    del direct
+    check_slice(cfg, drive_slice(sess))
+    text = sess.text_array(REPORTS)
+    decoded = sess.decode_text(text)
+    if cfg.text_encoding == "char":
+        check(text.shape == (len(REPORTS), cfg.len_sequence, cfg.num_features),
+              f"text_array: {text.shape}")
+        check(all(d.startswith(r.lower() + "$") for d, r in zip(decoded, REPORTS)),
+              f"decode_text(text_array(reports)): {[d[:40] for d in decoded]}")
+    images = request(cfg, len(REPORTS), seed=15)
+    cond = sess.cond_generate({"PA": images["PA"], "Lateral": images["Lateral"], "text": text},
+                              seed=4, compact=True)
+    strings = sess.decode_text(cond["Lateral_PA_text"]["text"])
+    check(len(strings) == len(REPORTS) and all(len(t) == cfg.len_sequence for t in strings),
+          f"decode_text of cond_generate: {len(strings)} rows")
+    launches = launch_counts()
+    if device.type == "cuda":
+        check(launches["poe_subsets_f32"] > 0, "the run-directory session did not launch K1")
+        check(not any(launches[k] for k in KERNELS if k != "poe_subsets_f32"),
+              f"the session launched other kernels than K1's forward: {launches}")
+    print(f"InferenceSession(run_dir=...) ({cfg.text_encoding} text, {cfg.compute_dtype}): "
+          f"epoch {sess.epoch}; encode 40 bitwise the state_dict session's; generate 16 ×2, "
+          f"cond_generate 8 full and compact ok; text_array → cond_generate → decode_text: "
+          f"{strings[0][:32]!r}...; K1 launches {launches['poe_subsets_f32']} [{card_line}]")
+    out = {"epoch": sess.epoch, "launches": launches}
+    if timed:
+        out["p50_ms"] = endpoint_timings(sess, card_line)
+    return out
+
+
+def char_block_shape(cfg) -> tuple:
+    """(C, S) of the input to the char networks' largest 1-D residual block
+    (most elements a row, the longer length first): read off a forward of
+    the char text encoder and decoder at ``cfg``'s widths, on the CPU."""
+    from mopoe_mimic_tpu_torch.models.resblocks import _ResidualBlock
+    from mopoe_mimic_tpu_torch.models.text_networks import DecoderText, EncoderText
+
+    cfg = cfg.replace(text_encoding="char")
+    shapes = []
+    nets = (EncoderText(cfg.DIM_text, cfg.class_dim, cfg.num_features, cfg.len_sequence,
+                        text_encoding="char"),
+            DecoderText(cfg.DIM_text, cfg.class_dim, cfg.num_features, cfg.len_sequence,
+                        text_encoding="char"))
+    for net in nets:
+        for mod in net.modules():
+            if isinstance(mod, _ResidualBlock):
+                mod.register_forward_pre_hook(lambda m, args: shapes.append(args[0].shape[1:]))
+    with torch.no_grad():
+        nets[0].eval()(torch.zeros(2, cfg.len_sequence, cfg.num_features))
+        nets[1].eval()(torch.zeros(2, cfg.class_dim))
+    C, S = max(shapes, key=lambda cs: (cs[0] * cs[1], cs[1]))
+    return int(C), int(S)
+
+
+def char_against_word(device, card_line: str) -> dict:
+    """Char C against word C through the graphed epoch at the flagship
+    (training C's diet, batch 256, bf16; each on a store of ``CLI_ROWS``
+    rows): 13 steps each (the capture included), the epoch means finite,
+    K1's two kernels launched by their wrappers, K2 only under word, K3
+    never; in a trace of 3 replays K1 forward and backward once a step
+    and, under word only, K2's four; one synchronising operation in an
+    epoch; then both in turns (word, char, char, word;
+    ``EPOCH_TIMED_STEPS`` steps a turn, CUDA events), and a 3-step profile
+    of each: device busy, idle share, device ops a step and the device
+    operations that take the most time."""
+    cfg_w = MopoeConfig.from_cli(cli_argv(CHAR_ROOT / "unused"))
+    paths = {"word": cfg_w, "char": cfg_w.replace(text_encoding="char")}
+    b = cfg_w.batch_size
+    runs = {}
+    for path, cfg in paths.items():
+        store, report = epoch_store(cfg, device, CLI_ROWS)
+        rows = np.concatenate([epoch_index_matrix(store, e, b) for e in range(10)])
+        state = create_train_state(cfg, device, seed=0)
+        train_epoch = make_train_epoch(cfg, store)
+        reset_launch_counts()
+        _, means = train_epoch(state, rows[:13])
+        launches = launch_counts()
+        for name, v in loss_terms(means).items():
+            check(np.isfinite(v), f"{path} C graphed epoch mean {name} = {v}")
+        check(means["nan_in_latents"] == 0.0, f"{path} C graphed epoch: NaN in latents")
+        for name in KERNELS:
+            on = name in ("poe_subsets_f32", "poe_subsets_bwd_f32") or (
+                path == "word" and name in K2_PER_STEP)
+            check((launches[name] > 0) == on, f"{path} C: {name} launched {launches[name]} times")
+        per_step = {"poe_subsets_f32": 1, "poe_subsets_bwd_f32": 1,
+                    **(K2_PER_STEP if path == "word" else {})}
+        expect = {REPLAYED[name]: n for name, n in per_step.items()}
+        replayed = replay_kernel_counts(lambda: train_epoch(state, rows[13:16]), 3, expect)
+        check(replayed == expect, f"{path} C replay trace: kernels a step {replayed}, "
+                                  f"not {expect}")
+        sites = synchronizing_ops(lambda: train_epoch(state, rows[16:19]))
+        check(sum(sites.values()) == 1
+              and all(site.startswith("mopoe_mimic_tpu_torch/train/scan.py") for site in sites),
+              f"{path} C: the graphed epoch synchronizes other than at its one read: {sites}")
+        print(f"{path} C graphed (flagship, batch {b}, bf16, {cfg.text_encoding} text length "
+              f"{cfg.len_sequence}; store {report['bytes']} B): 13 steps ok; wrapper launches "
+              f"{launches}; kernels a replayed step {replayed}; synchronizing operations in a "
+              f"3-step epoch {sum(sites.values())} [{card_line}]")
+        runs[path] = {"state": state, "epoch": train_epoch, "rows": rows, "launches": launches,
+                      "replayed_per_step": replayed, "store_bytes": report["bytes"],
+                      "syncs": sum(sites.values())}
+
+    times, cursor = {"word": [], "char": []}, {"word": 19, "char": 19}
+    for path in ("word", "char", "char", "word"):
+        run, lo = runs[path], cursor[path]
+        cursor[path] = hi = lo + EPOCH_TIMED_STEPS
+        times[path].append(cuda_event_ms(
+            lambda: run["epoch"](run["state"], run["rows"][lo:hi]), EPOCH_TIMED_STEPS))
+    out = {}
+    for path, run in runs.items():
+        lo = cursor[path]
+        prof = device_profile(lambda: run["epoch"](run["state"], run["rows"][lo:lo + 3]), 3)
+        top = sorted(prof["by_name_ms"].items(), key=lambda kv: -kv[1])[:6]
+        out[path] = {"ms_per_step": times[path],
+                     "samples_per_s": [b / t * 1e3 for t in times[path]],
+                     "device_busy_ms": prof["busy_ms"], "idle_pct": prof["idle_pct"],
+                     "device_ops": prof["ops"], "top_ops_ms": {n[:80]: t for n, t in top},
+                     **{k: run[k] for k in ("launches", "replayed_per_step", "store_bytes",
+                                            "syncs")}}
+        print(f"{path} C graphed (batch {b}, bf16; in turns word char char word, "
+              f"{EPOCH_TIMED_STEPS} steps a turn, CUDA events): "
+              + ", ".join(f"{t:.3f}" for t in times[path]) + " ms a step, "
+              + ", ".join(f"{b / t * 1e3:.1f}" for t in times[path]) + " samples/s; 3-step "
+              f"profile: device busy {prof['busy_ms']} ms a step, idle {prof['idle_pct']}%, "
+              f"{prof['ops']:.0f} device ops a step; top device time a step: "
+              + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top) + f" [{card_line}]")
+    return out
+
+
+STEP_SEEDS = range(14, 22)  # batch seeds for the char step, phase 8's first
+ULP_PROBES = 4  # one-ulp nudges of the images a seed is probed with
+
+
+def stable_step_seed(cfg, n: int = 8, seeds=STEP_SEEDS) -> tuple:
+    """The first batch seed of ``seeds`` at which a float32 step on the CPU
+    is stable to float32's rounding: its gradients move by at most a
+    quarter of phase 8's relative-L2 bound (2.5e-4) when the images are
+    nudged by one ulp (``ULP_PROBES`` nudges of random signs). At a batch
+    where float32's rounding decides a branch (a ReLU's input, or a pixel's
+    x − loc in the Laplace term, within rounding of the kink), and the
+    branch moves every gradient (BatchNorm at 1×1 spatial at batch 8), two
+    float32 evaluations disagree with each other by more than the bound
+    whatever computes them; a comparison of two devices is then decided by
+    which side of the kink each one's rounding falls. Weights as
+    ``gpu_step_against_cpu`` takes them. (seed, {seed: largest move})."""
+    cfg = cfg.replace(batch_size=n, compute_dtype="float32")
+    torch.manual_seed(0)
+    sd = MMVae(cfg).state_dict()
+    flat = lambda d: torch.cat([d[k].double().flatten() for k in sorted(d)])  # noqa: E731
+    moves = {}
+    for seed in seeds:
+        batch = training_batch(cfg, n, seed=seed, device="cpu")
+        _, ref = one_step_grads(cfg, sd, "cpu", batch)
+        worst = 0.0
+        for k in range(ULP_PROBES):
+            gen = torch.Generator().manual_seed(100 + k)
+            nudged = {m: v * (1 + (torch.randint(0, 2, v.shape, generator=gen) * 2 - 1)
+                              * 2.0 ** -23) if m in ("PA", "Lateral") else v
+                      for m, v in batch.items()}
+            _, got = one_step_grads(cfg, sd, "cpu", nudged)
+            worst = max(worst, float((flat(got) - flat(ref)).norm() / flat(ref).norm()))
+        moves[seed] = worst
+        print(f"{cfg.text_encoding} float32 step on the CPU, batch seed {seed}: gradients move "
+              f"by up to {worst:.3e} (relative L2) under {ULP_PROBES} one-ulp nudges of the "
+              f"images (stable below 2.5e-4)")
+        if worst <= 2.5e-4:
+            return seed, moves
+    check(False, f"no batch seed of {list(seeds)} gives a float32 step stable to rounding: "
+                 f"{moves}")
+
+
+def char_and_serving(device, card_line: str, word_run: Path) -> dict:
+    """Phase 11: char-1024 text and serving from a run directory, at the
+    flagship's full width. The training CLI with ``--text_encoding char``
+    (``char_cli_training``); the serve CLI on that run and on phase 10's
+    word run (``serve_cli``); a session on the char run in this process
+    (``serve_run_dir``), its launches counted; one float32 char train step
+    on the card against one on the CPU (phase 8's check and tolerances: K1
+    launched, K2 not) at the first batch seed from phase 8's at which
+    float32 is itself stable (``stable_step_seed``); char C against word C
+    through the graphed epoch (``char_against_word``)."""
+    device = torch.device(device)
+    torch.cuda.empty_cache()  # the CLIs' own processes share the card
+    out = {"cli": char_cli_training(device, card_line)}
+    char_run = out["cli"]["run"]
+    out["cli"]["run"] = char_run.name
+    out["serve_cli"] = {"char": serve_cli(char_run, device, card_line),
+                        "word": serve_cli(word_run, device, card_line)}
+    out["session"] = serve_run_dir(char_run, device, card_line)
+    char_cfg = MopoeConfig.from_json(str(FLAGSHIP)).replace(text_encoding="char",
+                                                            fused_text_head=True)
+    seed, moves = stable_step_seed(char_cfg)
+    reset_launch_counts()
+    out["gpu_step_against_cpu"] = gpu_step_against_cpu(
+        char_cfg, device, kernels=("poe_subsets_f32", "poe_subsets_bwd_f32"), seed=seed)
+    out["gpu_step_against_cpu"].update(seed=seed, ulp_moves=moves)
+    launches = launch_counts()
+    check(not any(launches[k] for k in KERNELS if k not in ("poe_subsets_f32",
+                                                           "poe_subsets_bwd_f32")),
+          f"the char step launched other kernels than K1's: {launches}")
+    out["graphed"] = char_against_word(device, card_line)
+    return out
+
+
 def epoch_capture_raises(cfg, device) -> str:
     """On the card ``make_train_epoch`` captures or raises: with an
     objective that waits for the host (a synchronize in the image
@@ -2427,13 +2813,18 @@ def drive_epoch(cfg, device, kernels=K12, rows: int = EPOCH_ROWS, parity_batch: 
     return out
 
 
+CHAR_PATHS = ("char_session", "char_epoch")
+
+
 def kernel_entries(results: dict, runs: dict, serve_launches: int) -> list:
     """The kernels line: each kernel with its launches on its own path (K1,
     K2: training A's graphed epoch, whose wrappers launch at its warm-up and
     capture, with the launches a replayed step from its trace; K3: the
     fused_pointwise run in bfloat16, and for K3's float32 forward and pass
     A, which a bfloat16 step never launches, phase 8's float32
-    fused_pointwise step), those on every path, and its measurements."""
+    fused_pointwise step), those on every path, those on the char path
+    (``launches_char``, ``replayed_per_step_char``), and its
+    measurements."""
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         path = ("train_epoch" if name in K12 else
@@ -2447,6 +2838,12 @@ def kernel_entries(results: dict, runs: dict, serve_launches: int) -> list:
         if name in REPLAYED:
             graphed = runs["train_epoch" if name in K12 else "train_epoch_fused_pointwise"]
             entry["replayed_per_step"] = graphed["replayed_per_step"][REPLAYED[name]]
+        # the char path (phase 11): the session's endpoints and the graphed
+        # epoch's warm-up and capture, and a replayed char step
+        entry["launches_char"] = {p: runs[p]["launches"][name] for p in CHAR_PATHS if p in runs}
+        if name in REPLAYED and "char_epoch" in runs:
+            entry["replayed_per_step_char"] = runs["char_epoch"]["replayed_per_step"].get(
+                REPLAYED[name], 0)
         kernels.append(entry)
     return kernels
 
@@ -2552,6 +2949,16 @@ def main() -> int:
     direct = statistics.mean(epoch["c_against_a"]["C"]["ms_per_step"])
     cli = cli_training(device, card_line, direct)
     runs["cli"] = {"launches": cli["launches"]}
+
+    # char-1024 text and serving from a run directory: the training and
+    # serve CLIs, the session on the run, char C against word C
+    word_run = next(p for p in (CLI_ROOT / "process").iterdir() if p.is_dir())
+    char = char_and_serving(device, card_line, word_run)
+    runs["char_session"] = {"launches": char["session"]["launches"]}
+    runs["char_epoch"] = {k: char["graphed"]["char"][k] for k in ("launches",
+                                                                  "replayed_per_step")}
+    print(json.dumps({"char_and_serving": char}))
+
     cli["autotune"] = cli_autotune(device, card_line)
     print(json.dumps({"cli_training": cli}))
 

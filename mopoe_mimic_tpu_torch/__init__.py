@@ -17,11 +17,13 @@ Layout mirrors the JAX package:
                  (``ops/cuda_texthead.py`` + ``csrc/texthead.cu``) and the
                  fused BN → ReLU → 1×1 conv (``ops/cuda_pointwise.py`` +
                  ``csrc/pointwise.cu``)
-  * ``models/``  residual blocks, image and word-text networks, MMVae, and
-                 the JAX → PyTorch weight converter
-  * ``data/``    the synthetic dataset, the host-fed ``BatchLoader`` and the
-                 card-resident ``DeviceStore`` (copies and ports of the JAX
-                 package's numpy-only data modules)
+  * ``models/``  residual blocks, image and text networks (char-1024, word
+                 at 128 and >= 512), MMVae, and the JAX → PyTorch weight
+                 converter
+  * ``data/``    the synthetic dataset, the host-fed ``BatchLoader``, the
+                 card-resident ``DeviceStore``, the char codec and the word
+                 vocabulary (copies and ports of the JAX package's
+                 numpy-only data modules)
   * ``train/``   the objective, the train state and optimizer, the train
                  and eval steps and their bodies, the epoch runners
                  (``train/scan.py``: a CUDA graph of a step, replayed per
@@ -30,12 +32,16 @@ Layout mirrors the JAX package:
                  checkpoint cadence) and the batch autotune
   * ``utils/``   checkpoints with resume and best-k retention, the results
                  CSV, TensorBoard, metric meters, the run directory, the
-                 logger, the preemption guard and profiling
+                 logger, the preemption guard, profiling and sample grids
+                 as PNG files
   * ``experiment.py`` the experiment: datasets, data feeds, train state,
                  run directory and sinks
   * ``main.py``  the training CLI (``python -m mopoe_mimic_tpu_torch.main``):
                  NaN restarts, the out-of-memory backoff, ``--load_run``
-  * ``serve.py`` the inference session and its CLI
+  * ``serve.py`` the inference session (a run directory or a config and a
+                 state_dict) and its CLI (``python -m
+                 mopoe_mimic_tpu_torch.serve --run_dir RUN``)
+  * ``serve_http.py`` the HTTP server over the session
 
 Module names use the reference's ``state_dict`` keys
 (``mopoe_mimic_tpu/models/torch_import.py:91-110``), so

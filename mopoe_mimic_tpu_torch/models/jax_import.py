@@ -14,11 +14,17 @@ rule:
   * BatchNorm        scale/bias → weight/bias, batch_stats mean/var →
                      running_mean/running_var, num_batches_tracked = 0
   * decoders         ``resblock_{i}`` → ``generator.{i-1}.0``,
-                     ``conv_out`` → ``generator.{n_blocks}``
+                     ``conv_out`` → ``generator.{n_blocks}``; the char text
+                     generator keeps its names (``resblock_{i}.0``, ``conv2``)
   * shortcuts        ``shortcut_conv`` / ``shortcut_bn`` →
                      ``downsample.{0,1}`` (encoders), ``upsample.{0,1}`` (decoders)
 
-Word text at len 128 only; its ``conv_out`` is a plain Conv1d.
+The text head's layout depends on the configuration, as the JAX side's
+``short_word`` switch does (torch_import.py:177, :227-238 of the JAX
+package): ``text_generator/conv_out`` is a plain Conv1d for word text at
+``len_sequence`` ≤ 500 and a ConvTranspose1d at ≥ 512; char's ``conv2`` is
+a ConvTranspose1d. ``cfg`` needs only ``text_encoding`` and
+``len_sequence``.
 """
 
 from __future__ import annotations
@@ -63,8 +69,8 @@ def _block_key(sub: str, shortcut: str) -> str:
 
 def state_dict_from_jax(variables: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` of a JAX MMVae → the port's state_dict."""
-    if cfg.text_encoding != "word" or cfg.len_sequence != 128:
-        raise NotImplementedError("only word text at len_sequence 128 is ported")
+    char = cfg.text_encoding == "char"
+    short_word = cfg.text_encoding == "word" and cfg.len_sequence <= 500
     params = variables["params"]
     n_gen_blocks = {
         (top, gen): sum(1 for name in params[top][gen] if name.startswith("resblock_"))
@@ -95,16 +101,17 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg) -> Dict[str, torch.Te
         elif group in ("img_generator", "text_generator"):
             mod = rest[0]
             gen = f"{base}.{group}.generator"
-            if mod == "conv_out":
-                idx = n_gen_blocks[(top, group)]
+            if mod in ("conv_out", "conv2"):  # the output layer (conv2: char's)
                 name = {"kernel": "weight", "bias": "bias"}[leaf]
-                plain = group == "text_generator"  # word@128: Conv1d(k1)
+                plain = group == "text_generator" and short_word  # word@128: Conv1d(k1)
                 if leaf == "kernel":
                     arr = _conv_w(arr) if plain else _convT_w(arr)
-                out[f"{gen}.{idx}.{name}"] = arr
+                key = (f"{base}.{group}.conv2" if mod == "conv2" else
+                       f"{gen}.{n_gen_blocks[(top, group)]}")
+                out[f"{key}.{name}"] = arr
             else:
-                i = int(mod.split("_")[1])
-                key = f"{gen}.{i - 1}.0.{_block_key(rest[1], 'upsample')}"
+                key = _generator_block(base, group, mod, char)
+                key = f"{key}.{_block_key(rest[1], 'upsample')}"
                 _put_block_leaf(out, key, rest[1], leaf, arr, transpose=True)
         else:
             raise KeyError(f"unrecognized module group in {'/'.join(path)}")
@@ -115,14 +122,21 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg) -> Dict[str, torch.Te
         if group == "feature_extractor":
             key = f"{base}.feature_extractor.{mod}.0.{_block_key(sub, 'downsample')}"
         else:
-            i = int(mod.split("_")[1])
-            key = f"{base}.{group}.generator.{i - 1}.0.{_block_key(sub, 'upsample')}"
+            key = f"{_generator_block(base, group, mod, char)}.{_block_key(sub, 'upsample')}"
         out[f"{key}.{_BN_STAT[leaf]}"] = arr
         if leaf == "mean":
             out[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
     # a fresh C-order copy: flipped views can keep negative strides even when
     # numpy deems them contiguous (size-1 axes), which torch refuses
     return {k: torch.from_numpy(np.array(v, order="C", copy=True)) for k, v in out.items()}
+
+
+def _generator_block(base: str, group: str, mod: str, char: bool) -> str:
+    """A decoder's ``resblock_{i}`` → its key prefix in the port: named in
+    the char text generator, an index of the ``Sequential`` otherwise."""
+    if char and group == "text_generator":
+        return f"{base}.{group}.{mod}.0"
+    return f"{base}.{group}.generator.{int(mod.split('_')[1]) - 1}.0"
 
 
 def _put_block_leaf(out, key, sub, leaf, arr, transpose: bool) -> None:

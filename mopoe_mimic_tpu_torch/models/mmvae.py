@@ -30,11 +30,12 @@ ReLU → 1×1 conv (K3) for train mode (mmvae.py:83, 102, 119, 134), and
 ``cfg.bn_compute_dtype`` gives every BatchNorm its dtype (mmvae.py:60:
 ``"compute"`` the compute dtype, else a dtype's name; ``models/resblocks.py``).
 ``remat`` other than ``"none"`` is refused: nothing is rematerialised.
-Factorized (style) representations and the char text encoding are not
-ported yet.
+Factorized (style) representations are not ported yet.
 
-Layouts are PyTorch's: images NCHW, text ids [B, L], text output
-[B, L, vocab]. The session converts at its boundary.
+Layouts are PyTorch's for images (NCHW) and the JAX package's for text:
+word ids [B, L], or under ``text_encoding="char"`` a float one-hot
+[B, 1024, 71]; the text output is [B, L, classes]. The session converts
+images at its boundary.
 """
 
 from __future__ import annotations
@@ -66,8 +67,6 @@ class MMVae(nn.Module):
         super().__init__()
         if cfg.factorized_representation and any(cfg.style_dims.values()):
             raise NotImplementedError("factorized (style) representations are not ported yet")
-        if cfg.text_encoding != "word":
-            raise NotImplementedError("only word text encoding is ported")
         if cfg.feature_extractor_img != "resnet":
             raise NotImplementedError("only the resnet image feature extractor is ported")
         if cfg.remat != "none":
@@ -77,11 +76,12 @@ class MMVae(nn.Module):
         for m in cfg.modality_names:
             suffix = MODULE_SUFFIX[m]
             if m == "text":
-                enc = EncoderText(cfg.DIM_text, cfg.class_dim, cfg.vocab_size,
-                                  cfg.len_sequence, cfg.bn_eps, cfg.fused_pointwise, bn_dtype)
+                enc = EncoderText(cfg.DIM_text, cfg.class_dim, cfg.num_features,
+                                  cfg.len_sequence, cfg.bn_eps, cfg.fused_pointwise, bn_dtype,
+                                  cfg.text_encoding)
                 dec = DecoderText(cfg.DIM_text, cfg.class_dim, cfg.num_features,
                                   cfg.len_sequence, cfg.text_gen_lastlayer, cfg.bn_eps,
-                                  cfg.fused_pointwise, bn_dtype)
+                                  cfg.fused_pointwise, bn_dtype, cfg.text_encoding)
             else:
                 enc = EncoderImg(cfg.DIM_img, cfg.class_dim, cfg.img_size,
                                  cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise, bn_dtype)

@@ -213,14 +213,19 @@ class CheckpointManager:
     def restore(self, state, epoch: Optional[int] = None) -> Tuple[int, Any]:
         """(epoch, ``state``) with the checkpoint of ``epoch`` (default: the
         latest) put back into ``state`` in place."""
+        epoch, payload = self.read(epoch)
+        load_state_payload(state, payload)
+        return epoch, state
+
+    def read(self, epoch: Optional[int] = None) -> Tuple[int, Dict[str, Any]]:
+        """(epoch, the checkpoint's payload on the host) of ``epoch``
+        (default: the latest); the model's weights are its ``"model"``."""
         self.wait_until_finished()
         epoch = epoch if epoch is not None else self.latest_epoch()
         if epoch is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        payload = torch.load(self.directory / str(epoch) / STATE_FILE, map_location="cpu",
-                             weights_only=True)
-        load_state_payload(state, payload)
-        return epoch, state
+        return epoch, torch.load(self.directory / str(epoch) / STATE_FILE, map_location="cpu",
+                                 weights_only=True)
 
     def latest_epoch(self) -> Optional[int]:
         self.wait_until_finished()

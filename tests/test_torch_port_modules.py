@@ -59,12 +59,13 @@ def assert_close(got, ref):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=atol)
 
 
-def port_weights(top, group, module_vars, strip):
+def port_weights(top, group, module_vars, strip, cfg=CFG):
     """Place one module's JAX variables where ``state_dict_from_jax``
-    expects them in an MMVae tree, convert, and strip the key prefix."""
+    expects them in an MMVae tree, convert (``cfg``: the text encoding and
+    length the layouts depend on), and strip the key prefix."""
     wrap = lambda t: {top: {group: t}} if group else {top: t}  # noqa: E731
     sd = state_dict_from_jax({"params": wrap(module_vars["params"]),
-                              "batch_stats": wrap(module_vars.get("batch_stats", {}))}, CFG)
+                              "batch_stats": wrap(module_vars.get("batch_stats", {}))}, cfg)
     assert all(k.startswith(strip) for k in sd), sorted(sd)[:3]
     return {k[len(strip):]: v for k, v in sd.items()}
 
@@ -74,15 +75,15 @@ def _placed(variables, group):
 
 
 def run_pair(jax_module, port_module, x_jax, x_port, top, group, strip, seed, train=False,
-             **call_kw):
+             cfg=CFG, **call_kw):
     """Noisy JAX variables → both modules → (port output, JAX output).
     With ``group`` set, the module is a block placed as ``resblock_1``.
     With ``train``, also → (port running stats, JAX updated running stats),
-    both as the port's state_dict entries."""
+    both as the port's state_dict entries. ``cfg``: as for ``port_weights``."""
     rng = np.random.default_rng(seed)
     variables = jax_module.init(jax.random.PRNGKey(seed), x_jax, train=False, **call_kw)
     variables = {c: noisy(jax.device_get(v), rng) for c, v in variables.items()}
-    port_module.load_state_dict(port_weights(top, group, _placed(variables, group), strip))
+    port_module.load_state_dict(port_weights(top, group, _placed(variables, group), strip, cfg))
     if not train:
         ref = jax_module.apply(variables, x_jax, train=False, **call_kw)
         port_module.eval()
@@ -92,7 +93,8 @@ def run_pair(jax_module, port_module, x_jax, x_port, top, group, strip, seed, tr
     ref, mut = jax_module.apply(variables, x_jax, train=True, mutable=["batch_stats"],
                                 rngs={"dropout": jax.random.PRNGKey(0)}, **call_kw)
     updated = dict(variables, batch_stats=jax.device_get(mut["batch_stats"]))
-    ref_stats = {k: v for k, v in port_weights(top, group, _placed(updated, group), strip).items()
+    ref_stats = {k: v for k, v in port_weights(top, group, _placed(updated, group), strip,
+                                                cfg).items()
                  if k.endswith(("running_mean", "running_var"))}
     port_module.train()
     for mod in port_module.modules():

@@ -168,7 +168,11 @@ def test_serve_cli_writes_samples(pairs, tmp_path):
                      "--num_samples", "3", "--device", "cpu", "--compact", "--out", str(out)])
     ids = np.load(out / "text_ids.npy")
     assert ids.dtype == np.int32 and ids.shape == (3, 128)
-    assert np.load(out / "PA.npy").dtype == np.uint8
+    # images as PNG grids (uint8 samples, 3 in a row of 64 px squares)
+    from PIL import Image
+
+    with Image.open(out / "PA.png") as png:
+        assert png.mode == "L" and png.size == (3 * 64, 64)
 
 
 def test_chip_smoke_slice_phase_rehearses_on_cpu(pairs):

@@ -119,11 +119,13 @@ def loss_terms(m):
     return {k: float(v) for k, v in step_loss_terms(m).items()}
 
 
-def jax_run(case, sd, batch, steps):
+def jax_run(case, sd, batch, steps, config=None):
     """JAX: ``steps`` Adam steps of the jitted objective, dropout off and
     z = mu. Returns per-step loss terms and, of the first step, the
-    gradients and updated batch_stats as port state_dict entries."""
-    jcfg = JaxConfig(**KW, **CASES[case])
+    gradients and updated batch_stats as port state_dict entries.
+    ``config``: the configuration's fields (default: KW with the case's)."""
+    config = {**KW, **CASES[case]} if config is None else config
+    jcfg = JaxConfig(**config)
     conv = convert_mopoe_state_dict({k: v.numpy() for k, v in sd.items()}, jcfg)
     params, bstats = conv["params"], conv["batch_stats"]
     model = jax_mmvae.MMVae(jcfg)
@@ -152,7 +154,7 @@ def jax_run(case, sd, batch, steps):
             new_params, bstats, opt_state, metrics, grads = step(params, bstats, opt_state)
             terms.append(loss_terms(jax.device_get(metrics)))
             if i == 0:
-                pcfg = MopoeConfig(**KW, **CASES[case])
+                pcfg = MopoeConfig(**config)
                 g = state_dict_from_jax({"params": jax.device_get(grads)}, pcfg)
                 stats = {k: v for k, v in state_dict_from_jax(
                     {"params": params, "batch_stats": jax.device_get(bstats)}, pcfg).items()
@@ -162,8 +164,8 @@ def jax_run(case, sd, batch, steps):
     return terms, first
 
 
-def port_run(case, sd, batch, steps):
-    cfg = MopoeConfig(**KW, **CASES[case])
+def port_run(case, sd, batch, steps, config=None):
+    cfg = MopoeConfig(**({**KW, **CASES[case]} if config is None else config))
     state = create_train_state(cfg, device="cpu", state_dict=sd)
     no_dropout(state.model)
     train_step = make_train_step(cfg, eps=0.0)
