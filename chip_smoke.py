@@ -184,11 +184,36 @@ any failure of which exits non-zero:
      one synchronising operation an epoch, both in turns (word char char
      word, 20 steps a turn, CUDA events) with a 3-step profile of each.
      Phase 3's K3 cases include the char networks' largest 1-D block
-     (``char_block_shape``: C 64 at length 512).
+     (``char_block_shape``: C 64 at length 512);
+ 12. the evaluation suite at the flagship's full width, training C's diet,
+     on ``testing_structured`` (run and classifier directories under
+     ``build/eval_runs``): ``python -m mopoe_mimic_tpu_torch.main
+     --config_path configs/flagship.json --dataset testing_structured`` with
+     depth flags only (a 2048-row store, 8 steps an epoch, an eval round
+     every epoch over 2 test batches, one quick classifier epoch, 6
+     importance samples) and ``--save_figure``, in a process of its own for
+     epoch 0, whose round trains the three classifiers and saves them as
+     ``<dir>.pt``, and again with ``--load_run`` for epoch 1, whose round
+     loads them from those files: each exits 0, the CSV row holds every
+     lr-eval, coherence and likelihood value, TensorBoard each evaluation's
+     scalars and the 10 grids at both epochs (where the package is
+     installed), each epoch's 10 grids are PNG files of their sizes; then one eval round in this process on the run's last
+     checkpoint, each evaluation timed with its launches counted (K1's
+     forward in lr-eval, coherence, IWAE and the grids, no other kernel in
+     the round), its results checked, the IWAE pass's peak memory, a
+     3-batch profile of IWAE and of coherence; then each evaluation's device
+     work on the card against the CPU, float32, batch 8 (``EVAL_TOL``: the
+     subset means rtol 1e-4 with atol 1e-4·max|ref|, IWAE with an injected
+     eps 1e-4·max(1, |ref|) for every subset × modality and the joint,
+     ``_fit_lr_batch`` 2e-3·max(1, max|ref|), each classifier's
+     probabilities |Δ| ≤ 1e-4, the det-z conditional samples rtol 1e-4 with
+     atol 1e-4·max|ref| and their probabilities |Δ| ≤ 1e-4 where both sides'
+     classifiers read the same input: a word-text token whose argmax flips
+     at a near tie is counted, not compared).
 
 Phase 9's numbers are printed as one JSON line ``{"epoch_training": ...}``,
 phase 10's as ``{"cli_training": ...}``, phase 11's as
-``{"char_and_serving": ...}``.
+``{"char_and_serving": ...}``, phase 12's as ``{"evaluation": ...}``.
 The last lines are a JSON object of the kernels (each with its launches on
 its path, a replayed step's launches from phase 9's trace, error, time,
 plain time, the least time the card could take for its bytes, operations
@@ -223,6 +248,7 @@ from mopoe_mimic_tpu_torch.ops import pointwise as PW
 from mopoe_mimic_tpu_torch.ops import texthead as TH
 from mopoe_mimic_tpu_torch.data.device_store import DeviceStore
 from mopoe_mimic_tpu_torch.data.synthetic import SyntheticMimic
+from mopoe_mimic_tpu_torch.experiment import Experiment
 from mopoe_mimic_tpu_torch.serve import InferenceSession
 from mopoe_mimic_tpu_torch.train.autotune import autotune_batch_size, step_memory_bytes
 from mopoe_mimic_tpu_torch.train.scan import epoch_index_matrix, make_train_epoch
@@ -2823,8 +2849,8 @@ def kernel_entries(results: dict, runs: dict, serve_launches: int) -> list:
     fused_pointwise run in bfloat16, and for K3's float32 forward and pass
     A, which a bfloat16 step never launches, phase 8's float32
     fused_pointwise step), those on every path, those on the char path
-    (``launches_char``, ``replayed_per_step_char``), and its
-    measurements."""
+    (``launches_char``, ``replayed_per_step_char``), K1 forward's in the
+    eval round by evaluation (``launches_eval``), and its measurements."""
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         path = ("train_epoch" if name in K12 else
@@ -2841,11 +2867,448 @@ def kernel_entries(results: dict, runs: dict, serve_launches: int) -> list:
         # the char path (phase 11): the session's endpoints and the graphed
         # epoch's warm-up and capture, and a replayed char step
         entry["launches_char"] = {p: runs[p]["launches"][name] for p in CHAR_PATHS if p in runs}
+        # the eval round (phase 12): K1's forward by evaluation
+        if name == "poe_subsets_f32" and "eval_round" in runs:
+            entry["launches_eval"] = runs["eval_round"]["k1_by_eval"]
         if name in REPLAYED and "char_epoch" in runs:
             entry["replayed_per_step_char"] = runs["char_epoch"]["replayed_per_step"].get(
                 REPLAYED[name], 0)
         kernels.append(entry)
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# the evaluation suite: lr-eval, coherence with its classifiers, IWAE, BLEU
+# ---------------------------------------------------------------------------
+
+EVAL_ROOT = ROOT / "build" / "eval_runs"  # run and classifier directories of phase 12
+EVAL_BATCHES = 2  # eval_max_batches: the whole test split of CLI_ROWS // 4 rows at batch 256
+EVALS = ("lr_eval", "clf_load_or_train", "coherence", "nll", "plots")
+ENCODING_EVALS = ("lr_eval", "coherence", "nll", "plots")  # the evals that run inference
+EVAL_TOL = {"means": "rtol 1e-4, atol 1e-4·max|ref|", "iwae": "1e-4·max(1, |ref|)",
+            "fit_lr": "2e-3·max(1, max|ref|)", "classifiers": "|Δp| ≤ 1e-4",
+            "det_z_samples": "rtol 1e-4, atol 1e-4·max|ref|",
+            "coherence_det_z": "|Δp| ≤ 1e-4 on equal classifier inputs"}
+
+
+def eval_cli_argv(root: Path, *extra) -> list:
+    """Phase 12's training CLI: the flagship config on ``testing_structured``
+    (a shared class behind every modality, so the classifiers have
+    something to learn) with training C's diet (``cli_argv``'s knobs) and
+    depth flags only: a store of ``CLI_ROWS`` rows, ``CLI_STEPS`` steps an
+    epoch, an eval round every epoch over ``EVAL_BATCHES`` test batches, one
+    quick epoch of classifier training, the default ``num_imp_samples``; the
+    grids written as files (``save_figure``); runs and classifiers under
+    ``root``."""
+    return ["--config_path", str(FLAGSHIP), "--dataset", "testing_structured",
+            "--device_resident_data", "true", "--fused_text_head", "true",
+            "--bn_compute_dtype", "compute", "--lr_warmup_steps", str(TRAIN_WARMUP_STEPS),
+            "--synthetic_length", str(CLI_ROWS), "--steps_per_training_epoch", str(CLI_STEPS),
+            "--eval_freq", "1", "--eval_max_batches", str(EVAL_BATCHES),
+            "--clf_quick_epochs", "1", "--save_figure", "true", "--seed", "0",
+            "--dir_experiment", str(root / "runs"), "--dir_clf", str(root / "clf"), *extra]
+
+
+def eval_round_seconds(stderr: str) -> dict:
+    """The eval round's line of the log → {name: seconds}."""
+    m = re.search(r"eval round: ([\d.]+)s total \(([^)]*)\)", stderr)
+    check(m is not None, f"no eval round in the log: {stderr[-2000:]}")
+    out = {"round_s": float(m[1])}
+    out.update({k: float(v) for k, v in (kv.split("=") for kv in m[2].split(", "))})
+    return out
+
+
+def check_plots(run: Path, cfg, epoch: int) -> int:
+    """The round's grids of ``epoch``: random samples of each modality and
+    the conditional grid of each subset, PNG files of the grids' sizes."""
+    s, n = cfg.img_size, min(cfg.batch_size, 8)
+    want = {f"random_samples/random_{m}_{epoch}.png": (8 * s, -(-n // 8) * s)
+            for m in ("PA", "Lateral")}
+    want[f"random_samples/random_text_{epoch}.png"] = (2 * 128, 2 * 128)
+    want.update({f"cond_gen/cond_gen_{k}_{epoch}.png": (4 * s, 3 * s) for k in SUBSETS})
+    for name, size in want.items():
+        path = run / "plots" / name
+        check(path.is_file(), f"missing plot {path}")
+        check(png_size(path) == size, f"{path}: {png_size(path)}, not {size}")
+    return len(want)
+
+
+def eval_cli(device, card_line: str = "", extra: tuple = ()) -> dict:
+    """Phase 12's CLI runs, each in a process of its own: epoch 0 of
+    ``eval_cli_argv``, whose eval round trains the three classifiers and
+    saves them as ``<dir>.pt``, then ``--load_run`` for epoch 1 (no
+    ``--dir_clf``: it comes from the run's config.json), whose round loads
+    them from those files and trains none. Each exits 0; the run's CSV
+    row holds every ``lr_eval_*``, ``gen_eval_*`` and ``likelihoods_*``
+    value (the likelihoods finite), TensorBoard (where the ``tensorboard``
+    package imports) each evaluation's scalars and each grid at both
+    epochs, and each epoch's grids are PNG files.
+    ``extra`` flags: the CPU rehearsal's widths."""
+    import importlib.util
+
+    device = torch.device(device)
+    shutil.rmtree(EVAL_ROOT, ignore_errors=True)
+    argvs = [eval_cli_argv(EVAL_ROOT, "--end_epoch", "1", *extra)]
+    out = {"processes": []}
+    for i in range(2):
+        if i == 1:
+            (run,) = [p for p in (EVAL_ROOT / "runs").iterdir() if p.is_dir()]
+            argvs.append(["--load_run", str(run), "--end_epoch", "2", *extra])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mopoe_mimic_tpu_torch.main", *argvs[i],
+                               "--device", device.type], cwd=ROOT, capture_output=True,
+                              text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the eval CLI (epoch {i}) exited {proc.returncode}: "
+                                    f"{proc.stderr[-3000:]}")
+        trained = proc.stderr.count("training classifier for modality")
+        loaded = len(re.findall(r"loaded classifier for \w+ from \S+\.pt", proc.stderr))
+        check((trained, loaded) == ((3, 0) if i == 0 else (0, 3)),
+              f"epoch {i}: {trained} classifiers trained, {loaded} loaded from .pt")
+        check(f"heavy evals CAPPED at {EVAL_BATCHES} test batches" in proc.stderr,
+              f"epoch {i}: the cap is not logged")
+        out["processes"].append({"epoch": i, "wall_s": wall,
+                                 "eval_round_s": eval_round_seconds(proc.stderr),
+                                 "classifiers_trained": trained, "classifiers_loaded": loaded})
+    cfg = MopoeConfig.from_json(str(run / "config.json"))
+    check(cfg.eval_lr and cfg.use_clf and cfg.calc_nll and not cfg.calc_prd,
+          "the run's config does not turn the evals on")
+    with open(EVAL_ROOT / "runs" / "experiments_dataframe.csv", newline="") as f:
+        (row,) = list(csv.DictReader(f))
+    metrics = {p: [k for k in row if k.startswith(p)] for p in
+               ("lr_eval_", "gen_eval_", "likelihoods_")}
+    for prefix, keys in metrics.items():
+        check(keys and all(row[k] != "" for k in keys), f"the CSV row lacks {prefix}* values")
+    lik = [float(row[k]) for k in metrics["likelihoods_"]]
+    check(len(lik) == 7 * 4 and all(np.isfinite(lik)), f"likelihoods in the CSV: {lik}")
+    check(float(row["total_epochs"]) == 1, f"CSV total_epochs {row['total_epochs']}")
+    events = list((run / "logs").glob("events.out.tfevents.*"))
+    has_tb = importlib.util.find_spec("tensorboard") is not None
+    check(bool(events) == has_tb, f"TensorBoard events {events} (tensorboard installed: {has_tb})")
+    if has_tb:  # each evaluation's scalars, and each grid at both epochs
+        from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+        acc = EventAccumulator(str(run / "logs"), size_guidance={"images": 0, "scalars": 0})
+        acc.Reload()
+        tags = acc.Tags()
+        for prefix in ("lr_eval/", "coherence/", "likelihoods/"):
+            check(any(t.startswith(prefix) for t in tags["scalars"]), f"no {prefix}* scalars")
+        check(len(tags["images"]) == 10 and all(
+            sorted(e.step for e in acc.Images(t)) == [0, 1] for t in tags["images"]),
+            f"TensorBoard images {tags['images']}")
+    out["plots"] = sum(check_plots(run, cfg, e) for e in range(2))
+    out.update(run=run, csv_values={p: len(k) for p, k in metrics.items()},
+               tensorboard=has_tb, likelihood_joint=float(row["likelihoods_Lateral_PA_text_joint"]),
+               bleu=float(row["gen_eval_text_gen_Lateral_PA_text_bleu"]))
+    print(f"python -m mopoe_mimic_tpu_torch.main --config_path configs/flagship.json --dataset "
+          f"testing_structured (training C's diet, batch {cfg.batch_size}, "
+          f"{cfg.synthetic_length}-row store, {cfg.steps_per_training_epoch} steps an epoch, an "
+          f"eval round each epoch over {EVAL_BATCHES} test batches): epoch 0 exit 0 in "
+          f"{out['processes'][0]['wall_s']:.1f} s (3 classifiers trained), --load_run epoch 1 "
+          f"exit 0 in {out['processes'][1]['wall_s']:.1f} s (3 loaded from .pt); eval rounds "
+          + "; ".join(json.dumps(p["eval_round_s"]) for p in out["processes"])
+          + f"; CSV values {out['csv_values']}; {out['plots']} PNG grids; TensorBoard "
+          f"{'scalars and 10 grids at both epochs' if has_tb else 'not installed'} "
+          f"[{card_line}]")
+    return out
+
+
+def eval_state(run: Path, device):
+    """(experiment, state) of the run's last checkpoint on ``device``: a new
+    experiment on the run's config, its directories not made, the
+    classifiers' directory the run's."""
+    cfg = MopoeConfig.from_json(str(run / "config.json")).replace(
+        dir_clf=str(EVAL_ROOT / "clf"), dir_experiment=str(EVAL_ROOT / "round"))
+    exp = Experiment(cfg, make_dirs=False, device=device)
+    _, state = CheckpointManager(str(run / "checkpoints")).restore(exp.init_state())
+    return exp, state
+
+
+def eval_round(run: Path, device, card_line: str = "") -> dict:
+    """One eval round in this process on the run's last checkpoint, each
+    evaluation timed (synchronised) with its launches counted from 0: K1's
+    forward in every evaluation that encodes or conditions (lr-eval,
+    coherence, IWAE, the grids) and in none other, no other kernel (K1's
+    backward, K2, K3) anywhere in the round; the classifiers loaded from
+    their ``.pt`` files; each result checked (finite likelihoods, metrics
+    and scores in [0, 1] or NaN, the grids in [0, 1]). The IWAE pass's peak
+    memory; a 3-batch profile each of IWAE and coherence (batches of the
+    train split: the test split has 2)."""
+    import itertools
+
+    from mopoe_mimic_tpu_torch.evaluation.clf_loader import load_or_train_classifiers
+    from mopoe_mimic_tpu_torch.evaluation.coherence import test_generation
+    from mopoe_mimic_tpu_torch.evaluation.likelihood import estimate_likelihoods
+    from mopoe_mimic_tpu_torch.evaluation.representation import (
+        test_clf_lr_all_subsets, train_clf_lr_all_subsets)
+    from mopoe_mimic_tpu_torch.utils.plotting import collect_plot_arrays, render_plot_arrays
+
+    device = torch.device(device)
+    exp, state = eval_state(run, device)
+    cuda = device.type == "cuda"
+
+    def clf_rows() -> int:  # a classifier's training adds a row
+        with open(EVAL_ROOT / "clf" / "clf_experiments_dataframe.csv", newline="") as f:
+            return len(list(csv.DictReader(f)))
+
+    rows_before = clf_rows()
+    seconds, launches, results = {}, {}, {}
+
+    def timed(name, fn):
+        _sync(device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results[name] = fn()
+        _sync(device)
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = launch_counts()
+
+    timed("lr_eval", lambda: test_clf_lr_all_subsets(exp, state,
+                                                     train_clf_lr_all_subsets(exp, state)))
+    timed("clf_load_or_train", lambda: load_or_train_classifiers(exp))
+    evaluator = results["clf_load_or_train"]
+    timed("coherence", lambda: test_generation(exp, state, evaluator, max_batches=EVAL_BATCHES))
+    peak = None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    timed("nll", lambda: estimate_likelihoods(exp, state, max_batches=EVAL_BATCHES))
+    if cuda:
+        peak = {"before_bytes": base, "peak_bytes": torch.cuda.max_memory_allocated(device)}
+    timed("plots", lambda: render_plot_arrays(exp, collect_plot_arrays(exp, state, 0), 0))
+
+    for name in EVALS:
+        k1 = launches[name]["poe_subsets_f32"]
+        if cuda:
+            check((k1 > 0) == (name in ENCODING_EVALS), f"eval {name}: K1 forward launched {k1}")
+        others = {k: v for k, v in launches[name].items() if v and k != "poe_subsets_f32"}
+        check(not others, f"eval {name} launched other kernels than K1's forward: {others}")
+    check(clf_rows() == rows_before, "the round trained classifiers instead of loading them")
+    check(not any(c.training for c in evaluator.classifiers.values()), "classifiers in train mode")
+    for s_key, metrics in results["lr_eval"].items():
+        for k, v in metrics.items():
+            check(np.isnan(v) or (np.isfinite(v) and (0 <= v <= 1 or "count" in k)),
+                  f"lr_eval {s_key} {k} = {v}")
+    gen = results["coherence"]
+    for k, v in _flat(gen).items():
+        check(np.isnan(v) or 0.0 <= v <= 1.0 or k.endswith("nbr_common_words"),
+              f"coherence {k} = {v}")
+    check(len(gen["text_gen"]) == 7 and len(gen["cond_coherence"]) == len(exp.labels),
+          f"coherence results {list(gen)}")
+    lik = _flat(results["nll"])
+    check(len(lik) == 28 and all(np.isfinite(v) for v in lik.values()), f"likelihoods {lik}")
+    grids = results["plots"]
+    check(len(grids) == 10 and all(np.isfinite(g).all() and g.min() >= 0 and g.max() <= 1
+                                   for g in grids.values()), f"grids {list(grids)}")
+    k1_by_eval = {n: launches[n]["poe_subsets_f32"] for n in EVALS}
+    totals = {k: sum(launches[n][k] for n in EVALS) for k in launches[EVALS[0]]}
+    out = {"seconds": seconds, "k1_launches": k1_by_eval, "launches": totals, "iwae_memory": peak,
+           "iwae_rows": exp.cfg.num_imp_samples * exp.cfg.effective_eval_batch_size,
+           "likelihood_joint": results["nll"]["Lateral_PA_text"]["joint"],
+           "random_coherence": gen["random_coherence"]}
+    print(f"eval round in this process ({device.type}, batch {exp.cfg.effective_eval_batch_size}, "
+          f"{EVAL_BATCHES} test batches): seconds " + ", ".join(
+              f"{n} {t:.3f}" for n, t in seconds.items())
+          + f"; K1 forward launches by eval {k1_by_eval}, no K1 backward, K2 or K3"
+          + (f"; IWAE ({out['iwae_rows']} rows a subset's decode) peak memory "
+             f"{peak['peak_bytes']} B ({peak['before_bytes']} B before)" if peak else "")
+          + f" [{card_line}]")
+    if cuda:
+        batches = list(itertools.islice(exp.eval_batches("train"), 3))
+        exp.eval_batches = lambda split="test", epoch=0: iter(batches)
+        for name, fn in (("nll", lambda: estimate_likelihoods(exp, state, max_batches=3)),
+                         ("coherence", lambda: test_generation(exp, state, evaluator,
+                                                               max_batches=3))):
+            prof = device_profile(fn, 3)
+            top = sorted(prof["by_name_ms"].items(), key=lambda kv: -kv[1])[:6]
+            out[f"profile_{name}"] = {"wall_ms": prof["wall_ms"], "device_busy_ms": prof["busy_ms"],
+                                      "idle_pct": prof["idle_pct"], "device_ops": prof["ops"],
+                                      "top_ops_ms": {n[:80]: t for n, t in top}}
+            print(f"{name} 3-batch profile (batch {exp.cfg.effective_eval_batch_size}): wall "
+                  f"{prof['wall_ms']:.3f} ms a batch, device busy {prof['busy_ms']} ms, idle "
+                  f"{prof['idle_pct']}%, {prof['ops']:.0f} device ops; top: "
+                  + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top) + f" [{card_line}]")
+    return out
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = float(v)
+    return out
+
+
+def eval_gpu_against_cpu(run: Path, device, n: int = 8) -> dict:
+    """Each evaluation's device work on the card against the CPU, float32,
+    on the run's last weights and its trained classifiers, batch ``n`` of
+    the test split: the subset means (``MMVae.inference``: K1 on the card);
+    IWAE with one injected eps [K·n, D] a subset, every subset × modality and
+    the joint; ``_fit_lr_batch`` on one seeded x, y (21 problems × 500
+    samples × the latent width); each classifier's eval-mode probabilities
+    on the batch; the det-z (eps = 0) conditional samples themselves, and
+    their probabilities under the classifiers. Tolerances: ``EVAL_TOL``.
+
+    The word-text classifier reads the argmax of the generated vocabulary
+    probabilities, and an argmax flips between two devices wherever two
+    tokens are tied to within the samples' rounding. A flipped token is a
+    different classifier input, so its row's probabilities are not held to
+    the CPU's; ``det_z_flips`` counts such tokens and rows, and the largest
+    gap between the two tokens' CPU probabilities (at most twice the
+    samples' error). Every row, flipped or not, is also held to the CPU with
+    the card's text classifier reading the CPU's token ids."""
+    from mopoe_mimic_tpu_torch.evaluation.clf_loader import clf_weights_path
+    from mopoe_mimic_tpu_torch.evaluation.coherence import CoherenceEvaluator
+    from mopoe_mimic_tpu_torch.evaluation.likelihood import make_likelihood_fn
+    from mopoe_mimic_tpu_torch.evaluation.representation import _fit_lr_batch
+    from mopoe_mimic_tpu_torch.train.clf_trainer import make_classifier
+    from mopoe_mimic_tpu_torch.train.step import eval_mode, to_device
+
+    device = torch.device(device)
+    cfg = MopoeConfig.from_json(str(run / "config.json")).replace(
+        batch_size=n, compute_dtype="float32", dir_clf=str(EVAL_ROOT / "clf"))
+    _, payload = CheckpointManager(str(run / "checkpoints")).read()
+    ds = Experiment(cfg, make_dirs=False, device="cpu").dataset_test
+    host = {k: np.asarray(v[:n]) for k, v in ds.arrays.items()}
+    host = {k: np.ascontiguousarray(v.transpose(0, 3, 1, 2)) if v.ndim == 4 else v
+            for k, v in host.items()}
+    keys = list(F.subset_powerset(cfg.modality_names))
+    rng = np.random.default_rng(21)
+    eps = {s: torch.from_numpy(rng.normal(size=(cfg.num_imp_samples * n, cfg.class_dim))
+                               .astype(np.float32)) for s in keys}
+    lr_x = rng.normal(size=(21, 500, cfg.class_dim)).astype(np.float32)
+    lr_y = (rng.random((21, 500)) < 1 / (1 + np.exp(-lr_x[..., 0] * 2))).astype(np.float32)
+    sides, evaluators = {}, {}
+    reset_launch_counts()
+    for dev in (device, torch.device("cpu")):
+        torch.manual_seed(0)
+        model = MMVae(cfg)
+        model.load_state_dict(payload["model"])
+        model.to(dev)
+        classifiers = {}
+        for m in cfg.modality_names:
+            clf = make_classifier(cfg, m, 3)
+            clf.load_state_dict(torch.load(clf_weights_path(cfg, m), map_location="cpu",
+                                           weights_only=True))
+            classifiers[m] = clf.to(dev).eval()
+        ev = evaluators[dev.type] = CoherenceEvaluator(cfg, classifiers)
+        batch = to_device(host, next(model.parameters()))
+        with eval_mode(cfg, model):
+            lat = model.inference(batch)
+            lik = make_likelihood_fn(cfg, model, keys)(
+                batch, eps={s: e.to(dev) for s, e in eps.items()})
+            cond = model.cond_generation(lat["subsets"], eps=0.0)
+        w, b = _fit_lr_batch(torch.from_numpy(lr_x).to(dev), torch.from_numpy(lr_y).to(dev))
+        sides[dev.type] = {
+            "means": {s: [t.cpu().numpy() for t in lat["subsets"][s]] for s in keys},
+            "iwae": {s: {m: float(v) for m, v in d.items()} for s, d in lik.items()},
+            "fit_lr": [w.cpu().numpy(), b.cpu().numpy()],
+            "classifiers": {m: ev.predict(m, batch[m]).cpu().numpy() for m in cfg.modality_names},
+            "det_z": {s: {m: t.cpu().numpy() for m, t in g.items()} for s, g in cond.items()},
+            "coherence_det_z": {s: {m: ev.predict(m, g[m]).cpu().numpy()
+                                    for m in cfg.modality_names} for s, g in cond.items()}}
+    k1 = launch_counts()["poe_subsets_f32"]
+    if device.type == "cuda":
+        check(k1 > 0, "the GPU side of the eval comparison did not launch K1")
+    got, ref = sides[device.type], sides["cpu"]
+    err = {}
+    worst = 0.0
+    for s in keys:
+        for g, r in zip(got["means"][s], ref["means"][s]):
+            scale = float(np.abs(r).max())
+            e = np.abs(g - r)
+            check(bool((e <= 1e-4 * np.abs(r) + 1e-4 * scale).all()),
+                  f"subset means {s}: max |Δ| {e.max():.3e}")
+            worst = max(worst, float(e.max()) / max(scale, 1e-30))
+    err["means"] = worst
+    worst = 0.0
+    for s in keys:
+        for m, r in ref["iwae"][s].items():
+            e = abs(got["iwae"][s][m] - r) / max(1.0, abs(r))
+            check(np.isfinite(r) and e <= 1e-4, f"IWAE {s} {m}: {got['iwae'][s][m]} vs {r}")
+            worst = max(worst, e)
+    err["iwae"] = worst
+    worst = 0.0
+    for g, r in zip(got["fit_lr"], ref["fit_lr"]):
+        e = float(np.abs(g - r).max()) / max(1.0, float(np.abs(r).max()))
+        check(e <= 2e-3, f"_fit_lr_batch: {e:.3e}")
+        worst = max(worst, e)
+    err["fit_lr"] = worst
+    err["classifiers"] = max(float(np.abs(got["classifiers"][m] - r).max())
+                             for m, r in ref["classifiers"].items())
+    check(err["classifiers"] <= 1e-4, f"classifiers: max |Δp| {err['classifiers']:.3e}")
+    err["det_z_samples"], flips = det_z_sample_errors(cfg, got["det_z"], ref["det_z"])
+    worst = 0.0
+    for s, d in ref["coherence_det_z"].items():
+        for m, r in d.items():
+            same = flips["same_rows"][s][m]
+            if same.any():
+                worst = max(worst, float(np.abs(got["coherence_det_z"][s][m][same] - r[same]).max()))
+            if m in flips["ref_ids"]:  # every row, on the CPU's token ids
+                on_ref = evaluators[device.type].predict(m, torch.from_numpy(flips["ref_ids"][m][s]))
+                worst = max(worst, float(np.abs(on_ref.cpu().numpy() - r).max()))
+    err["coherence_det_z"] = worst
+    flips = {k: v for k, v in flips.items() if k not in ("same_rows", "ref_ids")}
+    print(f"evaluation, det-z word-text argmax flips {device.type} against the CPU: {flips}")
+    for s in keys:
+        for m, r in ref["det_z"][s].items():
+            g = got["det_z"][s][m]
+            check(bool((np.abs(g - r) <= 1e-4 * np.abs(r) + 1e-4 * float(np.abs(r).max())).all()),
+                  f"det-z samples {s} {m}: max |Δ| {np.abs(g - r).max():.3e}")
+    check(err["coherence_det_z"] <= 1e-4, f"det-z coherence: max |Δp| {err['coherence_det_z']:.3e}")
+    print(f"evaluation, {device.type} against the CPU (float32, TF32 off, batch {n}, the run's "
+          "weights and classifiers): " + ", ".join(f"{k} {v:.3e} (bound {EVAL_TOL[k]})"
+                                                   for k, v in err.items())
+          + f"; K1 forward launches {k1}")
+    return {"max_err": err, "tolerance": EVAL_TOL, "k1_launches": k1, "det_z_flips": flips}
+
+
+def det_z_sample_errors(cfg, got: dict, ref: dict) -> tuple:
+    """(the largest error of the det-z samples {subset: {modality: array}},
+    relative to each array's max|ref|; the word-text argmax flips): the flip
+    record counts the tokens and the rows whose argmax differs, the largest
+    gap between the CPU's probabilities of its own and the other token,
+    ``same_rows`` {subset: {modality: [B] bool}} for the rows whose
+    classifier input is equal on both sides, and ``ref_ids`` {modality:
+    {subset: the CPU's token ids}}."""
+    worst = 0.0
+    flips = {"tokens": 0, "rows": 0, "max_gap": 0.0, "same_rows": {}, "ref_ids": {}}
+    for s, d in ref.items():
+        flips["same_rows"][s] = {}
+        for m, r in d.items():
+            g = got[s][m]
+            worst = max(worst, float(np.abs(g - r).max()) / max(float(np.abs(r).max()), 1e-30))
+            same = np.ones(r.shape[0], dtype=bool)
+            if m == "text" and cfg.text_encoding == "word" and r.ndim == 3:
+                ids_r, ids_g = r.argmax(-1), g.argmax(-1)
+                flipped = ids_r != ids_g
+                same = ~flipped.any(axis=1)
+                flips["tokens"] += int(flipped.sum())
+                flips["rows"] += int((~same).sum())
+                if flipped.any():
+                    gap = (np.take_along_axis(r, ids_r[..., None], -1)
+                           - np.take_along_axis(r, ids_g[..., None], -1))[..., 0][flipped]
+                    flips["max_gap"] = max(flips["max_gap"], float(gap.max()))
+                flips["ref_ids"].setdefault(m, {})[s] = ids_r.astype(np.int32)
+            flips["same_rows"][s][m] = same
+    return worst, flips
+
+
+def evaluation(device, card_line: str = "", extra: tuple = ()) -> dict:
+    """Phase 12: the evaluation suite at the flagship's full width
+    (``eval_cli``, ``eval_round``, ``eval_gpu_against_cpu``). ``extra``
+    flags: the CPU rehearsal's widths."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the CLIs' own processes share the card
+    out = {"cli": eval_cli(device, card_line, extra)}
+    run = out["cli"].pop("run")
+    out["round"] = eval_round(run, device, card_line)
+    out["gpu_against_cpu"] = eval_gpu_against_cpu(run, device)
+    out["cli"]["run"] = run.name
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2958,6 +3421,13 @@ def main() -> int:
     runs["char_epoch"] = {k: char["graphed"]["char"][k] for k in ("launches",
                                                                   "replayed_per_step")}
     print(json.dumps({"char_and_serving": char}))
+
+    # the evaluation suite at the flagship's full width: the training CLI
+    # with its eval rounds, one round in this process, GPU against CPU
+    evaluated = evaluation(device, card_line)
+    runs["eval_round"] = {"launches": evaluated["round"]["launches"],
+                          "k1_by_eval": evaluated["round"]["k1_launches"]}
+    print(json.dumps({"evaluation": evaluated}))
 
     cli["autotune"] = cli_autotune(device, card_line)
     print(json.dumps({"cli_training": cli}))

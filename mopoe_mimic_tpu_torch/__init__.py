@@ -18,8 +18,8 @@ Layout mirrors the JAX package:
                  fused BN → ReLU → 1×1 conv (``ops/cuda_pointwise.py`` +
                  ``csrc/pointwise.cu``)
   * ``models/``  residual blocks, image and text networks (char-1024, word
-                 at 128 and >= 512), MMVae, and the JAX → PyTorch weight
-                 converter
+                 at 128 and >= 512), MMVae, the CheXpert-label classifiers,
+                 and the JAX → PyTorch weight converters
   * ``data/``    the synthetic dataset, the host-fed ``BatchLoader``, the
                  card-resident ``DeviceStore``, the char codec and the word
                  vocabulary (copies and ports of the JAX package's
@@ -29,11 +29,14 @@ Layout mirrors the JAX package:
                  (``train/scan.py``: a CUDA graph of a step, replayed per
                  batch of the store), the epoch loop (``train/loop.py``:
                  ``run_epochs``), its callbacks (LR plateau, early stop,
-                 checkpoint cadence) and the batch autotune
+                 checkpoint cadence), the batch autotune and the
+                 classifiers' training (``train/clf_trainer.py``)
+  * ``evaluation/`` the eval round: lr-eval, coherence, the IWAE
+                 likelihoods, BLEU and the metrics
   * ``utils/``   checkpoints with resume and best-k retention, the results
                  CSV, TensorBoard, metric meters, the run directory, the
-                 logger, the preemption guard, profiling and sample grids
-                 as PNG files
+                 logger, the preemption guard, profiling, sample grids
+                 as PNG files and the eval round's plots
   * ``experiment.py`` the experiment: datasets, data feeds, train state,
                  run directory and sinks
   * ``main.py``  the training CLI (``python -m mopoe_mimic_tpu_torch.main``):

@@ -9,10 +9,13 @@ TensorBoard, and a host worker for jobs off the epoch path.
 The experiment lives on ``device``: the card unless the caller asks for the
 CPU; without a card it raises rather than falling back. The synthetic
 datasets (``testing``, ``testing_structured``) are ported; the MIMIC store
-(``data/mimic_dataset.py``) is not, and a run on it raises. The heavy
-evaluations (``eval_lr``, ``use_clf``, ``calc_nll``, ``calc_prd``) are not
-ported either: a run that asks for one raises at construction instead of
-looking evaluated.
+(``data/mimic_dataset.py``) is not, and a run on it raises. Of the heavy
+evaluations (``evaluation/``), lr-eval (``eval_lr``), coherence with its
+classifiers (``use_clf``) and the IWAE likelihoods (``calc_nll``) are
+ported; PRD/FID (``calc_prd``) and the DenseNet classifier are not, and a
+run that asks for either raises at construction instead of looking
+evaluated. The evaluations read ``labels`` and ``subsets`` and keep
+per-run objects in ``cached``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from mopoe_mimic_tpu_torch.data.loader import BatchLoader
 from mopoe_mimic_tpu_torch.data.synthetic import SyntheticMimic
+from mopoe_mimic_tpu_torch.ops.fusion import subset_powerset
 from mopoe_mimic_tpu_torch.train.state import TrainState, create_train_state
 from mopoe_mimic_tpu_torch.utils.checkpoints import CheckpointManager
 from mopoe_mimic_tpu_torch.utils.experiment_df import ExperimentDataframe
@@ -34,7 +38,13 @@ from mopoe_mimic_tpu_torch.utils.logger import log
 from mopoe_mimic_tpu_torch.utils.tb_logger import TBLogger
 
 HEAVY_EVALS = ("eval_lr", "use_clf", "calc_nll", "calc_prd")
+PRD_MISSING = ("calc_prd=True: PRD/FID sample quality (evaluation/sample_quality.py, "
+               "evaluation/embedding.py) and its Inception network (models/inception.py) are "
+               "not ported (ROADMAP queue 1 items 8-9); pass --calc_prd false")
 DROPOUT_SEED_OFFSET = 29  # the default generator's seed is cfg.seed + 29
+# CheXpert labels used for evaluation (dataio/utils.py:183-187)
+LABELS = ["Lung Opacity", "Pleural Effusion", "Support Devices"]
+BINARY_LABELS = ["Finding"]
 
 
 def require_device(device: Union[str, torch.device]) -> torch.device:
@@ -53,16 +63,19 @@ class Experiment:
         """``name``: reattach to an existing run directory (resume after a
         restart or a preemption) instead of making a new timestamped one."""
         self.device = require_device(device)
-        heavy = [f for f in HEAVY_EVALS if getattr(cfg, f)]
-        if heavy:
-            raise NotImplementedError(
-                f"{', '.join(f'{f}=True' for f in heavy)}: the evaluation suite is not ported; "
-                "pass " + " ".join(f"--{f} false" for f in heavy))
+        if cfg.calc_prd:
+            raise NotImplementedError(PRD_MISSING)
+        if cfg.use_clf and cfg.img_clf_type == "densenet":
+            from mopoe_mimic_tpu_torch.train.clf_trainer import DENSENET_MISSING
+
+            raise NotImplementedError(DENSENET_MISSING)
         if cfg.dataset.lower() not in ("testing", "testing_structured"):
             raise NotImplementedError(
                 f"dataset {cfg.dataset!r}: the MIMIC store (data/mimic_dataset.py) is not "
                 "ported; the port trains on dataset 'testing' or 'testing_structured'")
         self.cfg = cfg
+        self.labels = BINARY_LABELS if cfg.binary_labels else LABELS
+        self.subsets = subset_powerset(cfg.modality_names)
         self.name = name or run_name(cfg)
         self.paths = create_dir_structure(cfg, self.name, train=make_dirs)
         self.set_datasets()
@@ -112,6 +125,15 @@ class Experiment:
             self._stores = (DeviceStore(self.dataset_train, self.cfg, device=self.device),
                             DeviceStore(self.dataset_test, self.cfg, device=self.device))
         return self._stores
+
+    def cached(self, key, builder):
+        """``builder()``'s result, built once per ``key`` for the life of the
+        experiment: objects fixed for a run (the BLEU reference tables of
+        the test set)."""
+        cache = self.__dict__.setdefault("_cache", {})
+        if key not in cache:
+            cache[key] = builder()
+        return cache[key]
 
     def submit_host_job(self, fn, name: str = "") -> None:
         """Run ``fn`` on the experiment's one host worker thread, in

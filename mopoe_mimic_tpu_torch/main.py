@@ -10,6 +10,9 @@ Every ``MopoeConfig`` field is a flag (``config.py``), over the JSON of
 ``--config_path``. Besides: ``--load_run RUN_DIR`` reattaches to a run
 directory and resumes from its latest checkpoint, with its persisted
 ``config.json`` under the flags given on this command line (which win);
+of the persisted paths it keeps ``dir_clf``, so that a resume's coherence
+rounds read the classifiers that the run's first segment trained (the run
+persists ``dir_clf`` as an absolute path);
 ``--load_flags PATH`` overlays another persisted config;
 ``--autotune_batch_size`` doubles the batch while a train step fits on the
 card (``train/autotune.py``); ``--device`` is where to run (``cuda``, the
@@ -127,6 +130,17 @@ def load_flags(cfg: MopoeConfig, path: str, skip=()) -> MopoeConfig:
     return cfg.replace(**params)
 
 
+def persisted_dir_clf(run_dir: str, default: str) -> str:
+    """The ``dir_clf`` of the run directory's ``config.json`` (``default``
+    where there is none): the classifiers that the run's evaluation rounds
+    trained or loaded are the ones its resume must load."""
+    path = os.path.join(run_dir, "config.json")
+    if not os.path.exists(path):
+        return default
+    with open(path) as f:
+        return json.load(f).get("dir_clf", default)
+
+
 def _pop_option(argv: list, name: str) -> Optional[str]:
     """The value of ``name VALUE`` in argv, removed from it (None if absent)."""
     if name not in argv:
@@ -162,6 +176,9 @@ def main(argv=None, device: Union[str, torch.device] = "cuda"):
                 flags_path = persisted
     if flags_path:
         cfg = load_flags(cfg, flags_path, skip=explicit_keys)
+    if run_dir and "dir_clf" not in explicit_keys:
+        cfg = cfg.replace(dir_clf=persisted_dir_clf(run_dir, cfg.dir_clf))
+    cfg = cfg.replace(dir_clf=os.path.abspath(os.path.expanduser(cfg.dir_clf)))
     if cfg.seed is None:
         cfg = cfg.replace(seed=int(np.random.default_rng().integers(0, 10000)))
     if autotune:

@@ -148,3 +148,41 @@ def _put_block_leaf(out, key, sub, leaf, arr, transpose: bool) -> None:
         # the 1×1 conv1 of a transpose block is a ConvTranspose too
         arr = _convT_w(arr) if transpose else _conv_w(arr)
     out[f"{key}.{name}"] = arr
+
+
+def classifier_state_dict_from_jax(variables: Mapping[str, Any], cfg,
+                                   modality: str) -> Dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a JAX ``ClfImg`` / ``ClfText``
+    (``mopoe_mimic_tpu/models/classifiers.py``) → the ``state_dict`` of the
+    port's classifier for ``modality`` (``models/classifiers.py``), by the
+    layout rules above: ``conv1`` and the blocks' convolutions are plain
+    convs, ``resblock_{i}`` → ``resblock_{i}.0``, the shortcut →
+    ``downsample.{0,1}``, ``linear`` and ``embedding`` as in the VAE.
+    ``cfg`` and ``modality`` name the classifier: word text's has an
+    embedding, the others none."""
+    word_text = modality == "text" and cfg.text_encoding == "word"
+    if ("embedding" in variables["params"]) != word_text:
+        raise ValueError(f"a {modality} classifier of a {cfg.text_encoding} run "
+                         f"{'needs' if word_text else 'has no'} an embedding")
+    out: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(variables["params"]):
+        mod, leaf = path[0], path[-1]
+        if mod == "embedding":
+            out["embedding.weight"] = arr
+        elif mod in ("conv1", "linear"):
+            name = {"kernel": "weight", "bias": "bias"}[leaf]
+            if leaf == "kernel":
+                arr = _conv_w(arr) if mod == "conv1" else arr.T
+            out[f"{mod}.{name}"] = arr
+        elif mod.startswith("resblock_"):
+            key = f"{mod}.0.{_block_key(path[1], 'downsample')}"
+            _put_block_leaf(out, key, path[1], leaf, arr, transpose=False)
+        else:
+            raise KeyError(f"unrecognized classifier module in {'/'.join(path)}")
+    for path, arr in _flatten(variables.get("batch_stats", {})):
+        mod, sub, leaf = path
+        key = f"{mod}.0.{_block_key(sub, 'downsample')}"
+        out[f"{key}.{_BN_STAT[leaf]}"] = arr
+        if leaf == "mean":
+            out[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+    return {k: torch.from_numpy(np.array(v, order="C", copy=True)) for k, v in out.items()}

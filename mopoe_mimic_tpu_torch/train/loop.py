@@ -11,11 +11,17 @@ graph of the step replayed a batch on the card); otherwise the steps of
 ``BatchLoader``'s (a host batch is moved to the card by the step). The
 host reads the device once a pass: the epoch's means.
 
-Not ported: the heavy evaluations (``Experiment`` refuses their flags), the
-eval round's plots (logged once at WARNING), prefetching host batches to
-the card (``parallel/prefetch.py``) and the preemption flag's agreement
-across processes (the loop raises under a ``torch.distributed`` group of
-more than one process).
+The eval round (``evaluation/runner.py``: lr-eval, coherence, the IWAE
+likelihoods, the sample grids) runs after the test pass every
+``eval_freq`` epochs, at the last epoch and at an early stop, and its
+metrics join the results CSV (loop.py:113-128 of the JAX package); it
+leaves the state as it found it, so a resumed run stays bit for bit its
+straight twin. Its seconds are outside each epoch's train, test and
+callback seconds.
+
+Not ported: prefetching host batches to the card (``parallel/prefetch.py``)
+and the preemption flag's agreement across processes (the loop raises under
+a ``torch.distributed`` group of more than one process).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from mopoe_mimic_tpu_torch.evaluation.runner import run_eval_suite
 from mopoe_mimic_tpu_torch.experiment import Experiment, require_device
 from mopoe_mimic_tpu_torch.train.callbacks import Callbacks
 from mopoe_mimic_tpu_torch.train.state import TrainState
@@ -114,10 +121,16 @@ def run_epochs(exp: Experiment, state: Optional[TrainState] = None, resume: bool
     epoch_times = []
     history = []  # per epoch: losses and the seconds of each part
     preempted = False
-    plots_warned = False
 
     def saved_seconds() -> float:
         return exp.checkpoints.save_seconds if exp.checkpoints is not None else 0.0
+
+    def run_heavy_evals(epoch: int) -> None:
+        """The eval round (``evaluation/runner.py``); its metrics join the
+        run's CSV row."""
+        eval_results = run_eval_suite(exp, state, epoch)
+        if eval_results and exp.experiments_df is not None:
+            exp.experiments_df.update(eval_results)
 
     try:
         for epoch in range(start_epoch, cfg.end_epoch):
@@ -167,14 +180,12 @@ def run_epochs(exp: Experiment, state: Optional[TrainState] = None, resume: bool
             exp.tb_logger.write_epoch("test", epoch, _loggable(test_avg))
             last_test = test_avg
             t_test = time.perf_counter() - t_phase
-            t_phase = time.perf_counter()
 
             # ---- eval round every eval_freq epochs ----------------------------
-            if (epoch + 1) % cfg.eval_freq == 0 or epoch == cfg.end_epoch - 1:
-                if not plots_warned:
-                    log.warning("the eval round's sample plots (evaluation/runner.py:95-125 of "
-                                "the JAX package) are not ported: none are rendered")
-                    plots_warned = True
+            evals_ran = (epoch + 1) % cfg.eval_freq == 0 or epoch == cfg.end_epoch - 1
+            if evals_ran:
+                run_heavy_evals(epoch)
+            t_phase = time.perf_counter()
 
             # ---- callbacks ---------------------------------------------------
             test_loss = float(test_avg["total_loss"])
@@ -204,6 +215,9 @@ def run_epochs(exp: Experiment, state: Optional[TrainState] = None, resume: bool
             log.info(f"epoch {epoch} split: train pass {seconds['train']:.3f} s, test pass "
                      f"{seconds['test']:.3f} s, callbacks {seconds['callbacks']:.3f} s "
                      f"(checkpoint write {seconds['checkpoint']:.3f} s)")
+            if stop and not evals_ran:
+                # an early-stopped run must not ship metrics eval_freq epochs stale
+                run_heavy_evals(epoch)
             if stop or preempted:
                 break
     finally:

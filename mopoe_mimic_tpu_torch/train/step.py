@@ -69,6 +69,20 @@ def _autocast(cfg, device: torch.device):
     return contextlib.nullcontext()
 
 
+@contextlib.contextmanager
+def eval_mode(cfg, model: torch.nn.Module):
+    """``model`` in eval mode (BN running statistics, no dropout), without
+    gradients, under the compute dtype's autocast; its mode restored
+    after."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad(), _autocast(cfg, next(model.parameters()).device):
+            yield
+    finally:
+        model.train(was_training)
+
+
 def _use_fused_text_head(cfg, batch: Mapping[str, Any]) -> bool:
     """The fused head applies to the word/128/softmax head only, and only
     when text is in the batch (step.py:45-55)."""
@@ -86,7 +100,7 @@ def _wrap_text_head(cfg, outs: Dict[str, Any], model) -> Dict[str, Any]:
     return outs
 
 
-def _to_device(batch: Mapping[str, Any], param: torch.Tensor) -> Dict[str, torch.Tensor]:
+def to_device(batch: Mapping[str, Any], param: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Tensors on the parameters' device; uint8 modalities dequantised by
     1/255, floating ones in the parameters' dtype."""
     out = {}
@@ -225,7 +239,7 @@ def make_train_step(cfg, eps: Eps = None) -> Callable[[TrainState, Mapping[str, 
     body = make_train_step_body(cfg, eps)
 
     def train_step(state: TrainState, batch: Mapping[str, Any]) -> Dict[str, Any]:
-        metrics = body(state, _to_device(batch, next(state.model.parameters())))
+        metrics = body(state, to_device(batch, next(state.model.parameters())))
         state.step += 1
         return metrics
 
@@ -240,14 +254,8 @@ def make_eval_step_body(cfg, eps: Eps = None) -> Callable[..., Dict]:
 
     def body(state: TrainState, batch: Mapping[str, torch.Tensor],
              generator: torch.Generator) -> Dict[str, Any]:
-        model = state.model
-        was_training = model.training
-        model.eval()
-        try:
-            with torch.no_grad(), _autocast(cfg, state.step_t.device):
-                _, metrics = _forward_and_objective(cfg, model, batch, generator, eps)
-        finally:
-            model.train(was_training)
+        with eval_mode(cfg, state.model):
+            _, metrics = _forward_and_objective(cfg, state.model, batch, generator, eps)
         return metrics
 
     return body
@@ -261,7 +269,7 @@ def make_eval_step(cfg, eps: Eps = None) -> Callable[..., Dict]:
 
     def eval_step(state: TrainState, batch: Mapping[str, Any],
                   generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        return body(state, _to_device(batch, next(state.model.parameters())),
+        return body(state, to_device(batch, next(state.model.parameters())),
                     generator or state.generator)
 
     return eval_step

@@ -9,7 +9,8 @@
   the CSV row and the checkpoints; a NaN in the latents restarts with a
   new seed after wiping the run directory and its CSV row; the card out of
   memory retries at batch × 0.8, down to 8; ``load_flags`` keeps the flags
-  given on the command line; ``--load_run`` resumes a run.
+  given on the command line; ``--load_run`` resumes a run and keeps its
+  ``dir_clf``.
 * The batch autotune's doubling search with injected probes, as
   tests/test_autotune.py holds the JAX package's, and its OOM classifier.
 """
@@ -199,6 +200,26 @@ def test_load_run_resumes_with_the_persisted_config(tmp_path):
     assert sorted(os.listdir(tmp_path / run / "checkpoints")) == ["0", "1"]
     rows = (tmp_path / "experiments_dataframe.csv").read_text().splitlines()
     assert len(rows) == 2  # the run's row reused, not a second one
+
+
+def test_load_run_keeps_the_runs_dir_clf(tmp_path, monkeypatch):
+    """``--load_run`` takes ``dir_clf`` from the run's config.json unless the
+    command line gives it; the CLI resolves it against the working
+    directory, so the run persists an absolute path."""
+    run = tmp_path / "run"
+    run.mkdir()
+    (run / "config.json").write_text(json.dumps(MopoeConfig(dir_clf=str(tmp_path / "clf"))
+                                                .to_dict()))
+    seen = []
+    monkeypatch.setattr(port_main, "Main", lambda cfg, run_name, device: types.SimpleNamespace(
+        main=lambda: seen.append(cfg.dir_clf)))
+    monkeypatch.chdir(tmp_path)
+    port_main.main(["--load_run", str(run)], device="cpu")
+    port_main.main(["--load_run", str(run), "--dir_clf", "other"], device="cpu")
+    port_main.main([], device="cpu")
+    cwd = os.getcwd()
+    assert seen == [str(tmp_path / "clf"), os.path.join(cwd, "other"),
+                    os.path.normpath(os.path.join(cwd, "..", "clf"))]
 
 
 # ---------------------------------------------------------------------------

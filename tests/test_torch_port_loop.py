@@ -3,9 +3,12 @@
 at small width (64 px, DIM 2, class_dim 4, vocab 50, batch 8, float32).
 
 * tests/test_training_loop.py on the port: end to end, a resume at the
-  end, an early stop, the checkpoint round trip; the eval round's plots
-  warned once as not ported; tests/test_preemption.py on the port.
-* The heavy evaluation flags and the MIMIC dataset raise at construction.
+  end, an early stop, the checkpoint round trip; the eval round's sample
+  grids rendered every round (no "not ported" warning since the eval round
+  is ported); tests/test_preemption.py on the port.
+* Of the heavy evaluation flags only ``calc_prd`` raises at construction
+  (eval_lr, use_clf and calc_nll are ported), and so does the MIMIC
+  dataset.
 * Resume is bitwise, on the scanned path (the store and the epoch runners)
   and the per-step path, with dropout on: 2 epochs in one run equal 1
   epoch, then a new ``Experiment(name=...)`` resumed for 1 more, in
@@ -121,10 +124,17 @@ def test_early_stop_flushes_the_staged_best(tmp_path):
 
 
 def test_eval_round_plots_are_warned_once(tmp_path, caplog):
+    """The eval round's plots are ported: with ``save_figure`` every round
+    writes its grids, and nothing is warned as not ported."""
     with caplog.at_level(logging.WARNING, logger="mopoe_mimic_tpu_torch"):
-        _run(_cfg(tmp_path, end_epoch=3, eval_freq=1))
-    warned = [r for r in caplog.records if "plots" in r.message and "not ported" in r.message]
-    assert len(warned) == 1
+        exp, _ = _run(_cfg(tmp_path, end_epoch=3, eval_freq=1, save_figure=True))
+    assert not [r for r in caplog.records if "not ported" in r.message]
+    for epoch in range(3):
+        for m in ("PA", "Lateral", "text"):
+            assert os.path.isfile(os.path.join(exp.paths["plot_random"],
+                                               f"random_{m}_{epoch}.png"))
+        assert os.path.isfile(os.path.join(exp.paths["plot_cond"],
+                                           f"cond_gen_Lateral_PA_text_{epoch}.png"))
 
 
 def test_checkpoint_resume_roundtrip(tmp_path):
@@ -198,9 +208,15 @@ def test_preempted_run_checkpoints_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("flag", HEAVY_EVALS)
 def test_heavy_eval_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        Experiment(_cfg(tmp_path, **{flag: True}), device="cpu")
-    assert not os.listdir(tmp_path)  # nothing made before refusing
+    """``calc_prd`` (PRD/FID) raises, naming the missing modules, before
+    anything is made; eval_lr, use_clf and calc_nll are ported and accepted."""
+    cfg = _cfg(tmp_path, **{flag: True})
+    if flag == "calc_prd":
+        with pytest.raises(NotImplementedError, match="calc_prd.*models/inception.py"):
+            Experiment(cfg, device="cpu")
+        assert not os.listdir(tmp_path)  # nothing made before refusing
+    else:
+        assert getattr(Experiment(cfg, device="cpu").cfg, flag)
 
 
 def test_mimic_dataset_raises(tmp_path):

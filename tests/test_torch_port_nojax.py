@@ -1,6 +1,7 @@
 """The port stands without JAX: importing every module of
 mopoe_mimic_tpu_torch loads neither jax (nor flax, optax, orbax) nor any
-module of the JAX package, also from a copy of the tree that has no
+module of the JAX package, nor scikit-learn or pandas, which the card's
+machine does not have, also from a copy of the tree that has no
 ``mopoe_mimic_tpu/`` (where a train step runs too), and chip_smoke.py
 refuses to run, printing no result, where there is no CUDA device or no
 port beside it.
@@ -15,7 +16,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mopoe_mimic_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mopoe_mimic_tpu", "sklearn", "pandas")
 
 IMPORT_ALL = f"""
 import importlib, pkgutil, sys

@@ -57,7 +57,7 @@ from mopoe_mimic_tpu_torch.train.step import (
     _autocast,
     _detach,
     _forward_and_objective,
-    _to_device,
+    to_device,
     loss_terms,
     make_eval_step,
     make_train_step,
@@ -202,7 +202,7 @@ def old_train_step(cfg, eps):
     clip = float(cfg.grad_clip_norm)
 
     def step(model, opt, generator, host, batch):
-        batch = _to_device(batch, next(model.parameters()))
+        batch = to_device(batch, next(model.parameters()))
         model.train()
         opt.zero_grad(set_to_none=True)
         with _autocast(cfg, torch.device("cpu")):
