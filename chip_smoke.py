@@ -251,7 +251,7 @@ from mopoe_mimic_tpu_torch.data.synthetic import SyntheticMimic
 from mopoe_mimic_tpu_torch.experiment import Experiment
 from mopoe_mimic_tpu_torch.serve import InferenceSession
 from mopoe_mimic_tpu_torch.train.autotune import autotune_batch_size, step_memory_bytes
-from mopoe_mimic_tpu_torch.train.scan import epoch_index_matrix, make_train_epoch
+from mopoe_mimic_tpu_torch.train.scan import WARMUP_STEPS, epoch_index_matrix, make_train_epoch
 from mopoe_mimic_tpu_torch.train.state import create_train_state
 from mopoe_mimic_tpu_torch.train.step import loss_terms, make_train_step
 from mopoe_mimic_tpu_torch.utils.checkpoints import CheckpointManager
@@ -2088,8 +2088,9 @@ def epoch_training(cfg, store, device, card_line: str, per_step: dict) -> dict:
     flagship's batch from ``epoch_index_matrix``, ``make_train_epoch``
     (captured at its first call, replayed a step); every epoch mean finite,
     parameters and BN running statistics changed, the kernels of
-    ``per_step`` ({kernel: launches a step}) launched by their wrappers (at
-    warm-up and capture) where the count is not 0, never where it is; in a
+    ``per_step`` ({kernel: launches a step}) counted by their wrappers
+    exactly ``per_step`` times for each warm-up step and each of the 13
+    replays (the capture's own launches are not counted); in a
     trace of 3 replays each such kernel ``per_step`` times a step; no
     synchronising operation in an epoch but its one read; then the graphed
     epoch against the eager store-fed loop (``make_train_step`` on
@@ -2109,8 +2110,10 @@ def epoch_training(cfg, store, device, card_line: str, per_step: dict) -> dict:
     first_s = time.perf_counter() - t0
     launches = launch_counts()
     for name, n in per_step.items():
-        check((launches[name] > 0) == (n > 0),
-              f"graphed epoch: {name} launched {launches[name]} times (a step: {n})")
+        want = (WARMUP_STEPS + 13) * n
+        check(launches[name] == want, f"graphed epoch: {name} launched {launches[name]} times, "
+                                      f"not {want} ({WARMUP_STEPS} warm-up steps and 13 replays "
+                                      f"of {n})")
     for name, v in loss_terms(means).items():
         check(np.isfinite(v), f"graphed epoch mean {name} = {v}")
     check(np.isfinite(means["grad_norm"]) and means["grad_norm"] > 0,
@@ -2633,8 +2636,9 @@ def char_against_word(device, card_line: str) -> dict:
     """Char C against word C through the graphed epoch at the flagship
     (training C's diet, batch 256, bf16; each on a store of ``CLI_ROWS``
     rows): 13 steps each (the capture included), the epoch means finite,
-    K1's two kernels launched by their wrappers, K2 only under word, K3
-    never; in a trace of 3 replays K1 forward and backward once a step
+    each wrapper counting its launches a step for each warm-up step and
+    replay (K1's two once, K2's four once under word only, K3 none); in a
+    trace of 3 replays K1 forward and backward once a step
     and, under word only, K2's four; one synchronising operation in an
     epoch; then both in turns (word, char, char, word;
     ``EPOCH_TIMED_STEPS`` steps a turn, CUDA events), and a 3-step profile
@@ -2655,12 +2659,12 @@ def char_against_word(device, card_line: str) -> dict:
         for name, v in loss_terms(means).items():
             check(np.isfinite(v), f"{path} C graphed epoch mean {name} = {v}")
         check(means["nan_in_latents"] == 0.0, f"{path} C graphed epoch: NaN in latents")
-        for name in KERNELS:
-            on = name in ("poe_subsets_f32", "poe_subsets_bwd_f32") or (
-                path == "word" and name in K2_PER_STEP)
-            check((launches[name] > 0) == on, f"{path} C: {name} launched {launches[name]} times")
         per_step = {"poe_subsets_f32": 1, "poe_subsets_bwd_f32": 1,
                     **(K2_PER_STEP if path == "word" else {})}
+        for name in KERNELS:
+            want = (WARMUP_STEPS + 13) * per_step.get(name, 0)
+            check(launches[name] == want,
+                  f"{path} C: {name} launched {launches[name]} times, not {want}")
         expect = {REPLAYED[name]: n for name, n in per_step.items()}
         replayed = replay_kernel_counts(lambda: train_epoch(state, rows[13:16]), 3, expect)
         check(replayed == expect, f"{path} C replay trace: kernels a step {replayed}, "
@@ -2844,8 +2848,8 @@ CHAR_PATHS = ("char_session", "char_epoch")
 
 def kernel_entries(results: dict, runs: dict, serve_launches: int) -> list:
     """The kernels line: each kernel with its launches on its own path (K1,
-    K2: training A's graphed epoch, whose wrappers launch at its warm-up and
-    capture, with the launches a replayed step from its trace; K3: the
+    K2: training A's graphed epoch, its warm-up steps and its replays, with
+    the launches a replayed step from its trace; K3: the
     fused_pointwise run in bfloat16, and for K3's float32 forward and pass
     A, which a bfloat16 step never launches, phase 8's float32
     fused_pointwise step), those on every path, those on the char path
@@ -2865,7 +2869,7 @@ def kernel_entries(results: dict, runs: dict, serve_launches: int) -> list:
             graphed = runs["train_epoch" if name in K12 else "train_epoch_fused_pointwise"]
             entry["replayed_per_step"] = graphed["replayed_per_step"][REPLAYED[name]]
         # the char path (phase 11): the session's endpoints and the graphed
-        # epoch's warm-up and capture, and a replayed char step
+        # epoch's warm-up and replays, and a replayed char step
         entry["launches_char"] = {p: runs[p]["launches"][name] for p in CHAR_PATHS if p in runs}
         # the eval round (phase 12): K1's forward by evaluation
         if name == "poe_subsets_f32" and "eval_round" in runs:

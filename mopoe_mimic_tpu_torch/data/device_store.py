@@ -15,7 +15,9 @@ Port of ``mopoe_mimic_tpu/data/device_store.py``:
     CPU and on the card alike.
 
 ``train/scan.py`` captures ``gather_fn`` into the epoch's CUDA graph.
-``fits`` checks the store's bytes against the card's free memory. A
+``fits`` checks the store's bytes against the card's free memory. The
+span ``store.build`` times the construction: ``store.fetch`` (the host's
+compact columns) and ``store.upload`` (their copy to the device). A
 sharded store (``mesh``, ``shard_rows``) is not ported yet.
 """
 
@@ -29,6 +31,7 @@ import torch
 
 from mopoe_mimic_tpu_torch.data.alphabet import ALPHABET
 from mopoe_mimic_tpu_torch.data.loader import BatchLoader
+from mopoe_mimic_tpu_torch.utils import profiling
 
 log = logging.getLogger(__name__)
 
@@ -76,9 +79,12 @@ class DeviceStore:
         if columns is not None:
             cols = {k: v for k, v in cols.items() if k in columns}
         idx_all = np.arange(len(dataset))
-        host = {k: self._fetch(col, k, idx_all) for k, col in cols.items()}
-        self.nbytes = sum(a.nbytes for a in host.values())
-        self._cols = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+        with profiling.span("store.build", rows=len(dataset)) as build:
+            with profiling.span("store.fetch"):
+                host = {k: self._fetch(col, k, idx_all) for k, col in cols.items()}
+            self.nbytes = build.attrs["bytes"] = sum(a.nbytes for a in host.values())
+            with profiling.span("store.upload"):
+                self._cols = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
         log.info(f"DeviceStore: {len(dataset)} samples, {self.nbytes / 1e9:.2f} GB on "
                  f"{self.device}")
 

@@ -16,12 +16,13 @@ Generation (K1's forward in ``inference``) and classification stay on the
 card; the probabilities, the generated token ids and the reference ids
 come to the host once, after the last batch. The noise comes from a
 generator seeded ``cfg.seed + 47``: each batch draws the random latents,
-then each subset's conditional noise in order.
+then each subset's conditional noise in order. The spans
+``coherence.device`` (the batches and the one trip), ``coherence.ap`` and
+``coherence.bleu`` time the pass for its log line.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
@@ -36,6 +37,7 @@ from mopoe_mimic_tpu_torch.evaluation.bleu import (
 )
 from mopoe_mimic_tpu_torch.evaluation.metrics import eval_label_ap
 from mopoe_mimic_tpu_torch.train.step import eval_mode, to_device
+from mopoe_mimic_tpu_torch.utils import profiling
 from mopoe_mimic_tpu_torch.utils.logger import log
 
 SEED_OFFSET = 47  # the pass's generator is seeded cfg.seed + 47 (coherence.py:116)
@@ -116,49 +118,50 @@ def test_generation(exp, state, evaluator: CoherenceEvaluator, max_batches: int 
     rates, labels_all, ref_ids = [], [], []
     probs: Dict[str, Dict[str, list]] = {}
     gen_ids: Dict[str, list] = {}
-    t0 = time.perf_counter()
-    for i, (batch, labels) in enumerate(exp.eval_batches("test")):
-        if max_batches and i >= max_batches:
-            break
-        batch = to_device(batch, param)
-        with eval_mode(cfg, model):
-            rand = model.generate(n_rand, generator=generator)
-            latents = model.inference(batch)
-            cond = model.cond_generation(latents["subsets"], generator=generator, eps=eps)
-        rates.append(evaluator.coherence_rate(rand))
-        # subsets and modalities in sorted order, as the JAX package's
-        # device_get of a dict gives them (and so its results' keys)
-        for s_key in sorted(cond):
-            gen = cond[s_key]
-            slot = probs.setdefault(s_key, {})
-            for m in sorted(cfg.modality_names):
-                slot.setdefault(m, []).append(torch.nan_to_num(evaluator.predict(m, gen[m])))
-            gen_ids.setdefault(s_key, []).append(torch.argmax(gen["text"], dim=-1).to(torch.int32))
-        ref = batch["text"]
-        ref_ids.append((torch.argmax(ref, dim=-1) if ref.dim() == 3 else ref).to(torch.int32))
-        labels_all.append(np.nan_to_num(np.asarray(labels)))
-    # the pass's one trip to the host
-    rates_h = torch.stack(rates).tolist() if rates else []
-    probs_h = {s: {m: torch.cat(parts).cpu().numpy() for m, parts in per_mod.items()}
-               for s, per_mod in probs.items()}
-    gen_ids_h = {s: torch.cat(parts).cpu().numpy() for s, parts in gen_ids.items()}
-    t_device = time.perf_counter() - t0
+    with profiling.span("coherence.device") as t_device:
+        for i, (batch, labels) in enumerate(exp.eval_batches("test")):
+            if max_batches and i >= max_batches:
+                break
+            batch = to_device(batch, param)
+            with eval_mode(cfg, model):
+                rand = model.generate(n_rand, generator=generator)
+                latents = model.inference(batch)
+                cond = model.cond_generation(latents["subsets"], generator=generator, eps=eps)
+            rates.append(evaluator.coherence_rate(rand))
+            # subsets and modalities in sorted order, as the JAX package's
+            # device_get of a dict gives them (and so its results' keys)
+            for s_key in sorted(cond):
+                gen = cond[s_key]
+                slot = probs.setdefault(s_key, {})
+                for m in sorted(cfg.modality_names):
+                    slot.setdefault(m, []).append(torch.nan_to_num(evaluator.predict(m, gen[m])))
+                gen_ids.setdefault(s_key, []).append(
+                    torch.argmax(gen["text"], dim=-1).to(torch.int32))
+            ref = batch["text"]
+            ref_ids.append((torch.argmax(ref, dim=-1) if ref.dim() == 3 else ref)
+                           .to(torch.int32))
+            labels_all.append(np.nan_to_num(np.asarray(labels)))
+        # the pass's one trip to the host
+        rates_h = torch.stack(rates).tolist() if rates else []
+        probs_h = {s: {m: torch.cat(parts).cpu().numpy() for m, parts in per_mod.items()}
+                   for s, per_mod in probs.items()}
+        gen_ids_h = {s: torch.cat(parts).cpu().numpy() for s, parts in gen_ids.items()}
 
     # the per-batch rate averaged over the batches, one value for every label
     results: Dict[str, Any] = {"random_coherence": (
         {label: float(np.mean(rates_h)) for label in exp.labels} if rates_h else {})}
-    t0 = time.perf_counter()
-    if labels_all:
-        results["cond_coherence"] = evaluator.cond_ap(probs_h, np.concatenate(labels_all),
-                                                      exp.labels)
-    t_ap = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if ref_ids:
-        text_eval = _text_bleu_per_subset(cfg, exp, gen_ids_h, torch.cat(ref_ids).cpu().numpy())
-        if text_eval:
-            results["text_gen"] = text_eval
-    log.info(f"coherence: device={t_device:.1f}s ap={t_ap:.1f}s "
-             f"bleu={time.perf_counter() - t0:.1f}s")
+    with profiling.span("coherence.ap") as t_ap:
+        if labels_all:
+            results["cond_coherence"] = evaluator.cond_ap(probs_h, np.concatenate(labels_all),
+                                                          exp.labels)
+    with profiling.span("coherence.bleu") as t_bleu:
+        if ref_ids:
+            text_eval = _text_bleu_per_subset(cfg, exp, gen_ids_h,
+                                              torch.cat(ref_ids).cpu().numpy())
+            if text_eval:
+                results["text_gen"] = text_eval
+    log.info(f"coherence: device={t_device.seconds:.1f}s ap={t_ap.seconds:.1f}s "
+             f"bleu={t_bleu.seconds:.1f}s")
     return results
 
 

@@ -10,15 +10,18 @@ the BatchNorm running statistics are not updated (eval mode), no parameter
 is reallocated (the graphed epoch holds their addresses), and every
 evaluation draws from a generator of its own, never from the state's or
 dropout's default one (the classifiers' training forks the default
-generators: ``train/clf_trainer.py``). Each evaluation's seconds go to the
-log and to ``exp.eval_timings``.
+generators: ``train/clf_trainer.py``). Each evaluation is a span inside
+``eval.round`` (``eval.lr``, ``eval.clf_load``, ``eval.coherence``,
+``eval.nll``, ``eval.plots_collect``, ``eval.plots_render``, the last on
+the experiment's host worker where the plots render asynchronously); their
+seconds go to the log and to ``exp.eval_timings``.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, Optional
 
+from mopoe_mimic_tpu_torch.utils import profiling
 from mopoe_mimic_tpu_torch.utils.logger import log
 from mopoe_mimic_tpu_torch.utils.meters import flatten_metrics
 
@@ -41,71 +44,70 @@ def run_eval_suite(exp, state, epoch: int, max_batches: Optional[int] = None) ->
                  f"(~{max_batches * cfg.effective_eval_batch_size} samples) — metrics are not "
                  "comparable to full-test-set reference numbers")
     results: Dict[str, Any] = {}
-    timings: Dict[str, float] = {}
-    t_round = time.perf_counter()
+    parts: Dict[str, profiling.Span] = {}
 
-    if cfg.eval_lr:
-        from mopoe_mimic_tpu_torch.evaluation.representation import (
-            test_clf_lr_all_subsets,
-            train_clf_lr_all_subsets,
-        )
+    with profiling.span("eval.round", epoch=epoch) as round_span:
+        if cfg.eval_lr:
+            from mopoe_mimic_tpu_torch.evaluation.representation import (
+                test_clf_lr_all_subsets,
+                train_clf_lr_all_subsets,
+            )
 
-        log.info("eval: latent-representation classifiers")
-        t0 = time.perf_counter()
-        lr_eval = test_clf_lr_all_subsets(exp, state, train_clf_lr_all_subsets(exp, state))
-        timings["lr_eval_s"] = time.perf_counter() - t0
-        results["lr_eval"] = lr_eval
-        for s_key, metrics in lr_eval.items():
-            exp.tb_logger.write_epoch(f"lr_eval/{s_key}", epoch, metrics)
+            log.info("eval: latent-representation classifiers")
+            with profiling.span("eval.lr") as parts["lr_eval_s"]:
+                lr_eval = test_clf_lr_all_subsets(exp, state,
+                                                  train_clf_lr_all_subsets(exp, state))
+            results["lr_eval"] = lr_eval
+            for s_key, metrics in lr_eval.items():
+                exp.tb_logger.write_epoch(f"lr_eval/{s_key}", epoch, metrics)
 
-    if cfg.use_clf:
-        from mopoe_mimic_tpu_torch.evaluation.clf_loader import load_or_train_classifiers
-        from mopoe_mimic_tpu_torch.evaluation.coherence import test_generation
+        if cfg.use_clf:
+            from mopoe_mimic_tpu_torch.evaluation.clf_loader import load_or_train_classifiers
+            from mopoe_mimic_tpu_torch.evaluation.coherence import test_generation
 
-        log.info("eval: generation coherence")
-        t0 = time.perf_counter()
-        evaluator = load_or_train_classifiers(exp)
-        timings["clf_load_or_train_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        gen_eval = test_generation(exp, state, evaluator, max_batches=max_batches)
-        timings["coherence_s"] = time.perf_counter() - t0
-        results["gen_eval"] = gen_eval
-        exp.tb_logger.write_epoch("coherence", epoch, gen_eval)
+            log.info("eval: generation coherence")
+            with profiling.span("eval.clf_load") as parts["clf_load_or_train_s"]:
+                evaluator = load_or_train_classifiers(exp)
+            with profiling.span("eval.coherence") as parts["coherence_s"]:
+                gen_eval = test_generation(exp, state, evaluator, max_batches=max_batches)
+            results["gen_eval"] = gen_eval
+            exp.tb_logger.write_epoch("coherence", epoch, gen_eval)
 
-    if cfg.calc_nll:
-        from mopoe_mimic_tpu_torch.evaluation.likelihood import estimate_likelihoods
+        if cfg.calc_nll:
+            from mopoe_mimic_tpu_torch.evaluation.likelihood import estimate_likelihoods
 
-        log.info("eval: importance-weighted likelihoods")
-        t0 = time.perf_counter()
-        lhoods = estimate_likelihoods(exp, state, max_batches=max_batches)
-        timings["nll_s"] = time.perf_counter() - t0
-        results["likelihoods"] = lhoods
-        exp.tb_logger.write_epoch("likelihoods", epoch, lhoods)
+            log.info("eval: importance-weighted likelihoods")
+            with profiling.span("eval.nll") as parts["nll_s"]:
+                lhoods = estimate_likelihoods(exp, state, max_batches=max_batches)
+            results["likelihoods"] = lhoods
+            exp.tb_logger.write_epoch("likelihoods", epoch, lhoods)
 
-    try:
-        from mopoe_mimic_tpu_torch.utils.plotting import collect_plot_arrays, render_plot_arrays
+        try:
+            from mopoe_mimic_tpu_torch.utils.plotting import (
+                collect_plot_arrays,
+                render_plot_arrays,
+            )
 
-        t0 = time.perf_counter()
-        plot_data = collect_plot_arrays(exp, state, epoch)
-        timings["plots_collect_s"] = time.perf_counter() - t0
+            with profiling.span("eval.plots_collect") as parts["plots_collect_s"]:
+                plot_data = collect_plot_arrays(exp, state, epoch)
 
-        def _render(data=plot_data, ep=epoch):
-            for tag, img in render_plot_arrays(exp, data, ep).items():
-                exp.tb_logger.write_image(tag, img, ep)
+            def _render(data=plot_data, ep=epoch, parent=round_span.id) -> profiling.Span:
+                with profiling.span("eval.plots_render", parent=parent, epoch=ep) as sp:
+                    for tag, img in render_plot_arrays(exp, data, ep).items():
+                        exp.tb_logger.write_image(tag, img, ep)
+                return sp
 
-        if cfg.async_plots:
-            # host work only: overlaps the next epoch on the experiment's worker
-            exp.submit_host_job(_render, name=f"plot render (epoch {epoch})")
-        else:
-            t0 = time.perf_counter()
-            _render()
-            timings["plots_render_s"] = time.perf_counter() - t0
-    except Exception as e:  # noqa: BLE001 — a failed plot must not end the run
-        log.warning(f"plot generation FAILED: {e!r}", exc_info=True)
+            if cfg.async_plots:
+                # host work only: overlaps the next epoch on the experiment's worker
+                exp.submit_host_job(_render, name=f"plot render (epoch {epoch})")
+            else:
+                parts["plots_render_s"] = _render()
+        except Exception as e:  # noqa: BLE001 — a failed plot must not end the run
+            log.warning(f"plot generation FAILED: {e!r}", exc_info=True)
 
-    total = time.perf_counter() - t_round
-    exp.eval_timings = {**timings, "round_s": total}
+    timings = {k: sp.seconds for k, sp in parts.items()}
+    exp.eval_timings = {**timings, "round_s": round_span.seconds}
     if timings:
         split = ", ".join(f"{k}={v:.3f}" for k, v in timings.items())
-        log.info(f"eval round: {total:.3f}s total ({split})")
+        log.info(f"eval round: {round_span.seconds:.3f}s total ({split})")
     return flatten_metrics(results, sep="_") if results else {}

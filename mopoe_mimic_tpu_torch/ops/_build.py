@@ -9,6 +9,11 @@ the headers ``csrc/*.cuh`` they include and the flags, so an edited
 kernel never loads a stale binary; ptxas's report of each kernel's
 registers and spills goes beside it. A failed build raises with nvcc's
 output; nothing falls back.
+
+Each wrapper module counts its launches in a ``LAUNCHES`` dict made by
+``launch_counts``. A launch made while a CUDA graph captures is not run
+then: ``uncounted`` takes a capture's launches back out of the counts and
+returns them, and ``add_launches`` counts them once a replay.
 """
 
 from __future__ import annotations
@@ -21,9 +26,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List, Tuple
 
 import torch
+
+from mopoe_mimic_tpu_torch.utils import profiling
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -132,8 +139,14 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry point's signature."""
-    lib = ctypes.CDLL(str(build()))
+    """Build if needed, load, and declare every entry point's signature
+    (the span ``kernels.load``, whose ``built`` says whether nvcc ran)."""
+    with profiling.span("kernels.load", built=not library_path().exists()):
+        return _declare(ctypes.CDLL(str(build())))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with every entry point's signature declared."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     experts, masks = ctypes.POINTER(Experts), ctypes.POINTER(SubsetMasks)
     signatures = {
@@ -193,6 +206,41 @@ def on_device(device):
     if device.index == torch._C._cuda_getDevice():
         return _CURRENT
     return torch.cuda.device(device)
+
+
+_LAUNCH_COUNTS: List[Dict[str, int]] = []
+
+Launches = List[Tuple[Dict[str, int], str, int]]
+
+
+def launch_counts(*names: str) -> Dict[str, int]:
+    """A module's ``LAUNCHES``: a count for each entry point it launches,
+    known to ``uncounted``."""
+    counts = dict.fromkeys(names, 0)
+    _LAUNCH_COUNTS.append(counts)
+    return counts
+
+
+def uncounted(capture: Callable[[], None]) -> Launches:
+    """Run ``capture`` (a CUDA graph's capture); the launches it counted,
+    as (counts, name, launches), taken back out of the counts."""
+    before = [dict(counts) for counts in _LAUNCH_COUNTS]
+    capture()
+    out = []
+    for i, counts in enumerate(_LAUNCH_COUNTS):
+        was = before[i] if i < len(before) else dict.fromkeys(counts, 0)
+        for name, n in counts.items():
+            if n != was[name]:
+                out.append((counts, name, n - was[name]))
+                counts[name] = was[name]
+    return out
+
+
+def add_launches(launches: Launches) -> None:
+    """Count a replay of a graph whose capture ``uncounted`` returned
+    ``launches``."""
+    for counts, name, n in launches:
+        counts[name] += n
 
 
 def launch(counts: Dict[str, int], name: str, *args) -> None:

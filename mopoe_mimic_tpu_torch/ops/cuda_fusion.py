@@ -38,9 +38,10 @@ import torch
 from mopoe_mimic_tpu_torch.ops import _build
 from mopoe_mimic_tpu_torch.ops.fusion import prior_precision, subset_mask_matrix, subset_members
 
-# Launches of each kernel since the last reset; read by chip_smoke.py to
-# show that the main path went through the kernels.
-LAUNCHES = {"poe_subsets_f32": 0, "poe_subsets_bwd_f32": 0}
+# Launches of each kernel since the last reset, each replay of a captured
+# graph counted as the launches it holds (train/scan.py); read by
+# chip_smoke.py to show that the main path went through the kernels.
+LAUNCHES = _build.launch_counts("poe_subsets_f32", "poe_subsets_bwd_f32")
 
 POWERSET_MAX_EXPERTS = 3  # csrc/poe_subsets.cu's POE_POWERSET_MAX_EXPERTS
 

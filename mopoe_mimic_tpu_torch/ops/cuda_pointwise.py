@@ -33,11 +33,13 @@ import torch
 
 from mopoe_mimic_tpu_torch.ops import _build
 
-# Launches of each kernel since the last reset; read by chip_smoke.py to
-# show that the main path went through the kernels.
-LAUNCHES = {"pointwise_fwd": 0, "pointwise_fwd_tc": 0, "pointwise_bwd_reduce": 0,
-            "pointwise_bwd_reduce_tc": 0, "pointwise_bwd_finalize": 0, "pointwise_bwd_dx": 0,
-            "pointwise_bwd_dx_tc": 0, "pointwise_stats": 0, "pointwise_stats_finalize": 0}
+# Launches of each kernel since the last reset, each replay of a captured
+# graph counted as the launches it holds (train/scan.py); read by
+# chip_smoke.py to show that the main path went through the kernels.
+LAUNCHES = _build.launch_counts(
+    "pointwise_fwd", "pointwise_fwd_tc", "pointwise_bwd_reduce", "pointwise_bwd_reduce_tc",
+    "pointwise_bwd_finalize", "pointwise_bwd_dx", "pointwise_bwd_dx_tc", "pointwise_stats",
+    "pointwise_stats_finalize")
 
 MAX_CHANNELS = 2048
 # pointwise_fwd_tc keeps all C rows of W's 64-output slice in shared memory,

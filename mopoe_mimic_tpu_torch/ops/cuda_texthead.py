@@ -26,10 +26,11 @@ import torch
 
 from mopoe_mimic_tpu_torch.ops import _build
 
-# Launches of each kernel since the last reset; read by chip_smoke.py to
-# show that the main path went through the kernels.
-LAUNCHES = {"texthead_fwd": 0, "texthead_bwd_dh": 0, "texthead_bwd_dw": 0,
-            "texthead_bwd_dw_finalize": 0}
+# Launches of each kernel since the last reset, each replay of a captured
+# graph counted as the launches it holds (train/scan.py); read by
+# chip_smoke.py to show that the main path went through the kernels.
+LAUNCHES = _build.launch_counts("texthead_fwd", "texthead_bwd_dh", "texthead_bwd_dw",
+                                  "texthead_bwd_dw_finalize")
 
 MAX_CHANNELS = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

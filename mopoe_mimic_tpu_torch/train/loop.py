@@ -19,6 +19,19 @@ leaves the state as it found it, so a resumed run stays bit for bit its
 straight twin. Its seconds are outside each epoch's train, test and
 callback seconds.
 
+Spans (``utils/profiling``), all inside ``loop.epoch`` (attribute
+``epoch``): ``loop.train_pass`` and ``loop.test_pass``, each holding
+``epoch.index_matrix`` (the host's matrix), the epoch runner's spans
+(``scan.upload``, ``scan.graph_key``, ``scan.replays``,
+``scan.read_means``) or the per-step loop, then ``loop.nan_check`` and
+``loop.tb_write``; the eval round's ``eval.round``; ``loop.callbacks``,
+holding ``loop.csv`` (each update of the results CSV, here and in the
+callbacks), ``callbacks.update`` (the checkpoint manager's
+``checkpoint.stage`` and ``checkpoint.write`` inside it) and
+``loop.preemption_read``. The history's seconds are the durations of the
+passes' and the callbacks' spans, and of the checkpoint writes among the
+callbacks.
+
 Not ported: prefetching host batches to the card (``parallel/prefetch.py``)
 and the preemption flag's agreement across processes (the loop raises under
 a ``torch.distributed`` group of more than one process).
@@ -38,6 +51,7 @@ from mopoe_mimic_tpu_torch.experiment import Experiment, require_device
 from mopoe_mimic_tpu_torch.train.callbacks import Callbacks
 from mopoe_mimic_tpu_torch.train.state import TrainState
 from mopoe_mimic_tpu_torch.train.step import make_eval_step, make_train_step
+from mopoe_mimic_tpu_torch.utils import profiling
 from mopoe_mimic_tpu_torch.utils.exceptions import NaNInLatent
 from mopoe_mimic_tpu_torch.utils.logger import log
 from mopoe_mimic_tpu_torch.utils.meters import MetricAccumulator
@@ -122,8 +136,8 @@ def run_epochs(exp: Experiment, state: Optional[TrainState] = None, resume: bool
     history = []  # per epoch: losses and the seconds of each part
     preempted = False
 
-    def saved_seconds() -> float:
-        return exp.checkpoints.save_seconds if exp.checkpoints is not None else 0.0
+    def saved_ns() -> int:
+        return exp.checkpoints.save_ns if exp.checkpoints is not None else 0
 
     def run_heavy_evals(epoch: int) -> None:
         """The eval round (``evaluation/runner.py``); its metrics join the
@@ -134,90 +148,94 @@ def run_epochs(exp: Experiment, state: Optional[TrainState] = None, resume: bool
 
     try:
         for epoch in range(start_epoch, cfg.end_epoch):
-            t0 = time.perf_counter()
-            # ---- train pass ------------------------------------------------
-            train_loader.set_epoch(epoch)
-            idx_mat = (epoch_index_matrix(store_train, epoch, cfg.batch_size,
-                                          seed=cfg.seed or 0, weighted=cfg.weighted_sampler,
-                                          steps_cap=steps_cap)
-                       if scan else None)
-            if idx_mat is not None and len(idx_mat):
-                state, train_avg = train_epoch_fn(state, idx_mat)
-            else:
-                acc = MetricAccumulator()
-                if store_train is not None:
-                    train_iter = _at_most(store_train.iter_epoch(
-                        epoch, cfg.batch_size, seed=cfg.seed or 0,
-                        weighted=cfg.weighted_sampler), steps_cap)
-                else:
-                    train_iter = _at_most(iter(train_loader), steps_cap)
-                for batch, _labels in train_iter:
-                    acc.update(train_step(state, batch))
-                train_avg = acc.averages()
-            _check_nans(cfg, train_avg)
-            exp.tb_logger.write_epoch("train", epoch, _loggable(train_avg))
-            t_train = time.perf_counter() - t0
-            t_phase = time.perf_counter()
+            with profiling.span("loop.epoch", epoch=epoch) as epoch_span:
+                # ---- train pass --------------------------------------------
+                with profiling.span("loop.train_pass") as train_pass:
+                    train_loader.set_epoch(epoch)
+                    with profiling.span("epoch.index_matrix"):
+                        idx_mat = (epoch_index_matrix(store_train, epoch, cfg.batch_size,
+                                                      seed=cfg.seed or 0,
+                                                      weighted=cfg.weighted_sampler,
+                                                      steps_cap=steps_cap)
+                                   if scan else None)
+                    if idx_mat is not None and len(idx_mat):
+                        state, train_avg = train_epoch_fn(state, idx_mat)
+                    else:
+                        acc = MetricAccumulator()
+                        if store_train is not None:
+                            train_iter = _at_most(store_train.iter_epoch(
+                                epoch, cfg.batch_size, seed=cfg.seed or 0,
+                                weighted=cfg.weighted_sampler), steps_cap)
+                        else:
+                            train_iter = _at_most(iter(train_loader), steps_cap)
+                        for batch, _labels in train_iter:
+                            acc.update(train_step(state, batch))
+                        train_avg = acc.averages()
+                    _pass_end(exp, cfg, "train", epoch, train_avg)
 
-            # ---- test pass ---------------------------------------------------
-            test_loader.set_epoch(epoch)
-            test_idx = (epoch_index_matrix(store_test, epoch, cfg.batch_size,
-                                           seed=(cfg.seed or 0) + 1, steps_cap=steps_cap)
-                        if scan else None)
-            if test_idx is not None and len(test_idx):
-                eval_gen, test_avg = eval_epoch_fn(state, eval_gen, test_idx)
-            else:
-                acc = MetricAccumulator()
-                if store_test is not None:
-                    test_iter = _at_most(store_test.iter_epoch(
-                        epoch, cfg.batch_size, seed=(cfg.seed or 0) + 1), steps_cap)
-                else:
-                    test_iter = _at_most(iter(test_loader), steps_cap)
-                for batch, _labels in test_iter:
-                    acc.update(eval_step(state, batch, eval_gen))
-                test_avg = acc.averages()
-            _check_nans(cfg, test_avg)
-            exp.tb_logger.write_epoch("test", epoch, _loggable(test_avg))
-            last_test = test_avg
-            t_test = time.perf_counter() - t_phase
+                # ---- test pass ---------------------------------------------
+                with profiling.span("loop.test_pass") as test_pass:
+                    test_loader.set_epoch(epoch)
+                    with profiling.span("epoch.index_matrix"):
+                        test_idx = (epoch_index_matrix(store_test, epoch, cfg.batch_size,
+                                                       seed=(cfg.seed or 0) + 1,
+                                                       steps_cap=steps_cap)
+                                    if scan else None)
+                    if test_idx is not None and len(test_idx):
+                        eval_gen, test_avg = eval_epoch_fn(state, eval_gen, test_idx)
+                    else:
+                        acc = MetricAccumulator()
+                        if store_test is not None:
+                            test_iter = _at_most(store_test.iter_epoch(
+                                epoch, cfg.batch_size, seed=(cfg.seed or 0) + 1), steps_cap)
+                        else:
+                            test_iter = _at_most(iter(test_loader), steps_cap)
+                        for batch, _labels in test_iter:
+                            acc.update(eval_step(state, batch, eval_gen))
+                        test_avg = acc.averages()
+                    _pass_end(exp, cfg, "test", epoch, test_avg)
+                    last_test = test_avg
 
-            # ---- eval round every eval_freq epochs ----------------------------
-            evals_ran = (epoch + 1) % cfg.eval_freq == 0 or epoch == cfg.end_epoch - 1
-            if evals_ran:
-                run_heavy_evals(epoch)
-            t_phase = time.perf_counter()
+                # ---- eval round every eval_freq epochs ------------------------
+                evals_ran = (epoch + 1) % cfg.eval_freq == 0 or epoch == cfg.end_epoch - 1
+                if evals_ran:
+                    run_heavy_evals(epoch)
 
-            # ---- callbacks ---------------------------------------------------
-            test_loss = float(test_avg["total_loss"])
-            train_loss = float(train_avg["total_loss"])
-            elapsed = time.perf_counter() - t0
-            epoch_times.append(elapsed)
-            log.info(f"epoch {epoch}: train_loss={train_loss:.4f} test_loss={test_loss:.4f} "
-                     f"({elapsed:.1f}s: train={t_train:.1f} test={t_test:.1f})")
-            if exp.experiments_df is not None:
-                exp.experiments_df.update({"total_epochs": epoch,
-                                           "mean_epoch_time": float(np.mean(epoch_times))})
-            saved_before = saved_seconds()
-            stop, state = callbacks.update_epoch(epoch, test_loss, state, elapsed)
-            preempted = not stop and guard is not None and guard.requested
-            if preempted:
-                log.warning(f"preemption: checkpointing at epoch {epoch} and exiting — resume "
-                            "by reattaching to this run dir: --load_run "
-                            f"{exp.paths.get('experiment_run', '<run_dir>')}")
-                if exp.checkpoints is not None:
-                    exp.checkpoints.save(epoch, state, force=True,
-                                         metrics={"test_loss": test_loss})
-            seconds = {"train": t_train, "test": t_test,
-                       "callbacks": time.perf_counter() - t_phase,
-                       "checkpoint": saved_seconds() - saved_before}
-            history.append({"epoch": epoch, "train_loss": train_loss, "test_loss": test_loss,
-                            "seconds": seconds})
-            log.info(f"epoch {epoch} split: train pass {seconds['train']:.3f} s, test pass "
-                     f"{seconds['test']:.3f} s, callbacks {seconds['callbacks']:.3f} s "
-                     f"(checkpoint write {seconds['checkpoint']:.3f} s)")
-            if stop and not evals_ran:
-                # an early-stopped run must not ship metrics eval_freq epochs stale
-                run_heavy_evals(epoch)
+                # ---- callbacks -----------------------------------------------
+                with profiling.span("loop.callbacks") as callbacks_span:
+                    test_loss = float(test_avg["total_loss"])
+                    train_loss = float(train_avg["total_loss"])
+                    elapsed = (time.perf_counter_ns() - epoch_span.start_ns) / 1e9
+                    epoch_times.append(elapsed)
+                    log.info(f"epoch {epoch}: train_loss={train_loss:.4f} "
+                             f"test_loss={test_loss:.4f} ({elapsed:.1f}s: "
+                             f"train={train_pass.seconds:.1f} test={test_pass.seconds:.1f})")
+                    if exp.experiments_df is not None:
+                        exp.experiments_df.update({"total_epochs": epoch,
+                                                   "mean_epoch_time": float(np.mean(epoch_times))})
+                    saved_before = saved_ns()
+                    with profiling.span("callbacks.update"):
+                        stop, state = callbacks.update_epoch(epoch, test_loss, state, elapsed)
+                    with profiling.span("loop.preemption_read"):
+                        preempted = not stop and guard is not None and guard.requested
+                    if preempted:
+                        log.warning(f"preemption: checkpointing at epoch {epoch} and exiting "
+                                    "— resume by reattaching to this run dir: --load_run "
+                                    f"{exp.paths.get('experiment_run', '<run_dir>')}")
+                        if exp.checkpoints is not None:
+                            exp.checkpoints.save(epoch, state, force=True,
+                                                 metrics={"test_loss": test_loss})
+                seconds = {"train": train_pass.seconds, "test": test_pass.seconds,
+                           "callbacks": callbacks_span.seconds,
+                           "checkpoint": (saved_ns() - saved_before) / 1e9}
+                history.append({"epoch": epoch, "train_loss": train_loss,
+                                "test_loss": test_loss, "seconds": seconds})
+                log.info(f"epoch {epoch} split: train pass {seconds['train']:.3f} s, test pass "
+                         f"{seconds['test']:.3f} s, callbacks {seconds['callbacks']:.3f} s "
+                         f"(checkpoint write {seconds['checkpoint']:.3f} s)")
+                if stop and not evals_ran:
+                    # an early-stopped run must not ship metrics eval_freq epochs stale
+                    run_heavy_evals(epoch)
             if stop or preempted:
                 break
     finally:
@@ -232,6 +250,14 @@ def run_epochs(exp: Experiment, state: Optional[TrainState] = None, resume: bool
     return {"state": state, "train": train_avg, "test": last_test, "history": history,
             "epochs_run": len(epoch_times), "preempted": preempted,
             "mean_epoch_time": float(np.mean(epoch_times)) if epoch_times else 0.0}
+
+
+def _pass_end(exp: Experiment, cfg, split: str, epoch: int, avg: Dict[str, Any]) -> None:
+    """A pass's NaN check and TensorBoard write, each its own span."""
+    with profiling.span("loop.nan_check"):
+        _check_nans(cfg, avg)
+    with profiling.span("loop.tb_write"):
+        exp.tb_logger.write_epoch(split, epoch, _loggable(avg))
 
 
 def _check_nans(cfg, avg: Dict[str, Any]) -> None:

@@ -26,16 +26,28 @@ is the per-step path, as in the JAX loop).
 Numerics match the per-step path: the same body, the same epoch order
 (``DeviceStore.epoch_order``), and the eval pass advances its generator
 batch by batch as the per-step loop's would (the JAX rng split chain).
+
+Spans (``utils/profiling``): ``scan.capture`` (the warm-up and the
+capture, ``kind`` train or eval), and in each call ``scan.upload`` (the
+index matrix to the device), on the card ``scan.graph_key`` (the state's
+tensors' addresses, which decide whether to capture again),
+``scan.replays`` (the replays' enqueue, on the CPU the steps; ``stamps``
+holds a ``perf_counter_ns`` taken just before each replay) and
+``scan.read_means`` (the one read). Counters: ``scan.captures.<kind>``,
+``scan.replays.<kind>`` and ``scan.reads``. A replay adds the launches its
+capture made to the kernels' ``LAUNCHES``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from mopoe_mimic_tpu_torch.ops import _build
 from mopoe_mimic_tpu_torch.train.state import TrainState
 from mopoe_mimic_tpu_torch.train.step import (
     Eps,
@@ -43,6 +55,7 @@ from mopoe_mimic_tpu_torch.train.step import (
     make_train_step_body,
     static_grads,
 )
+from mopoe_mimic_tpu_torch.utils import profiling
 
 WARMUP_STEPS = 2  # eager steps on a side stream before a capture
 
@@ -57,19 +70,29 @@ def _metric_vector(metrics) -> Tuple[torch.Tensor, Any]:
 def _mean_over_steps(sums: torch.Tensor, n_steps: int, spec) -> Any:
     """Epoch sums of every metric → the epoch means as a tree of floats
     (flags such as ``nan_in_latents`` become rates): the epoch's one read
-    of the device."""
-    return tree_unflatten((sums / n_steps).tolist(), spec)
+    of the device (the span ``scan.read_means``, counted in ``scan.reads``)."""
+    with profiling.span("scan.read_means"):
+        means = (sums / n_steps).tolist()
+    profiling.count("scan.reads")
+    return tree_unflatten(means, spec)
 
 
 def _index_rows(idx_mat, device: torch.device) -> torch.Tensor:
     """The [n_steps, B] index matrix on ``device``, int32, in one copy
     (from pinned memory to the card, which does not wait for the host)."""
-    idx = torch.as_tensor(np.asarray(idx_mat, np.int32))
-    if idx.ndim != 2 or idx.shape[0] == 0:
-        raise ValueError(f"index matrix of shape {tuple(idx.shape)}: need [n_steps > 0, B]")
-    if device.type == "cuda":
-        return idx.pin_memory().to(device, non_blocking=True)
-    return idx.to(device)
+    with profiling.span("scan.upload"):
+        idx = torch.as_tensor(np.asarray(idx_mat, np.int32))
+        if idx.ndim != 2 or idx.shape[0] == 0:
+            raise ValueError(f"index matrix of shape {tuple(idx.shape)}: need [n_steps > 0, B]")
+        if device.type == "cuda":
+            return idx.pin_memory().to(device, non_blocking=True)
+        return idx.to(device)
+
+
+def _replays(kind: str, rows: torch.Tensor) -> profiling.Span:
+    """The span ``scan.replays`` of a call over ``rows``; its ``stamps``
+    take a ``perf_counter_ns`` just before each replay (or step)."""
+    return profiling.span("scan.replays", kind=kind, steps=len(rows), stamps=[])
 
 
 def _addresses(tensors) -> Tuple[int, ...]:
@@ -91,32 +114,47 @@ def _train_tensors(state: TrainState) -> List[Optional[torch.Tensor]]:
 
 class _CapturedStep:
     """One step captured in a CUDA graph: ``step(idx)`` on a static index
-    buffer, its metric vector added into static sums."""
+    buffer, its metric vector added into static sums. ``kind`` (train or
+    eval) names it in the spans and counters. The warm-up's launches are
+    counted; the capture's are not, and ``launches`` holds them, which
+    every replay counts."""
 
     def __init__(self, step: Callable[[torch.Tensor], Tuple[torch.Tensor, Any]],
                  batch_size: int, device: torch.device, generator: torch.Generator,
-                 restore: Callable[[], None]):
-        self.idx = torch.zeros(batch_size, dtype=torch.int32, device=device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                vec, self.spec = step(self.idx)
-        torch.cuda.current_stream(device).wait_stream(side)
-        restore()
-        self.sums = torch.zeros_like(vec)
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph):
-            vec, _ = step(self.idx)
-            self.sums += vec
+                 restore: Callable[[], None], kind: str):
+        self.kind = kind
+        with profiling.span("scan.capture", kind=kind):
+            self.idx = torch.zeros(batch_size, dtype=torch.int32, device=device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    vec, self.spec = step(self.idx)
+            torch.cuda.current_stream(device).wait_stream(side)
+            restore()
+            self.sums = torch.zeros_like(vec)
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.register_generator_state(generator)
+
+            def capture():
+                with torch.cuda.graph(self.graph):
+                    vec, _ = step(self.idx)
+                    self.sums += vec
+
+            self.launches = _build.uncounted(capture)
+        profiling.count(f"scan.captures.{kind}")
 
     def run(self, rows: torch.Tensor) -> torch.Tensor:
         """Replay once per row of ``rows`` (on the card); the sums."""
         self.sums.zero_()
-        for row in rows:
-            self.idx.copy_(row)
-            self.graph.replay()
+        with _replays(self.kind, rows) as sp:
+            stamps = sp.attrs["stamps"]
+            for row in rows:
+                self.idx.copy_(row)
+                stamps.append(time.perf_counter_ns())
+                self.graph.replay()
+                _build.add_launches(self.launches)
+        profiling.count(f"scan.replays.{self.kind}", len(rows))
         return self.sums
 
 
@@ -159,13 +197,14 @@ def make_train_epoch(cfg, store, eps: Eps = None
 
     def graph_for(state, batch_size) -> _CapturedStep:
         # the state is kept beside its key, so that its id stays its own
-        key = (id(state), batch_size, _addresses(_train_tensors(state)))
+        with profiling.span("scan.graph_key"):
+            key = (id(state), batch_size, _addresses(_train_tensors(state)))
         if captured.get("key") != key:
             captured.clear()
             static_grads([p for g in state.optimizer.param_groups for p in g["params"]])
             restore = _train_snapshot(state)
             graph = _CapturedStep(lambda idx: step(state, idx), batch_size, store.device,
-                                  state.generator, restore)
+                                  state.generator, restore, "train")
             key = (id(state), batch_size, _addresses(_train_tensors(state)))
             captured.update(graph=graph, key=key, state=state)
         return captured["graph"]
@@ -177,9 +216,11 @@ def make_train_epoch(cfg, store, eps: Eps = None
             sums, spec = graph.run(rows), graph.spec
         else:
             sums = 0.0
-            for row in rows:
-                vec, spec = step(state, row)
-                sums = sums + vec
+            with _replays("train", rows) as sp:
+                for row in rows:
+                    sp.attrs["stamps"].append(time.perf_counter_ns())
+                    vec, spec = step(state, row)
+                    sums = sums + vec
         state.step += rows.shape[0]
         return state, _mean_over_steps(sums, rows.shape[0], spec)
 
@@ -202,12 +243,13 @@ def make_eval_epoch(cfg, store, eps: Eps = None
         return _metric_vector(body(state, store.gather_fn(store.cols, idx), generator))
 
     def graph_for(state, batch_size) -> _CapturedStep:
-        key = (id(state), batch_size, _addresses(state.model.state_dict().values()))
+        with profiling.span("scan.graph_key"):
+            key = (id(state), batch_size, _addresses(state.model.state_dict().values()))
         if captured.get("key") != key:
             captured.clear()
             own = torch.Generator(store.device)
             graph = _CapturedStep(lambda idx: step(state, idx, own), batch_size, store.device,
-                                  own, lambda: None)
+                                  own, lambda: None, "eval")
             captured.update(graph=graph, generator=own, key=key, state=state)
         return captured["graph"]
 
@@ -222,9 +264,11 @@ def make_eval_epoch(cfg, store, eps: Eps = None
             generator.set_state(own.get_state())
         else:
             sums = 0.0
-            for row in rows:
-                vec, spec = step(state, row, generator)
-                sums = sums + vec
+            with _replays("eval", rows) as sp:
+                for row in rows:
+                    sp.attrs["stamps"].append(time.perf_counter_ns())
+                    vec, spec = step(state, row, generator)
+                    sums = sums + vec
         return generator, _mean_over_steps(sums, rows.shape[0], spec)
 
     return eval_epoch

@@ -22,6 +22,7 @@ from typing import Iterable, Mapping, Optional, Union
 import torch
 
 from mopoe_mimic_tpu_torch.models.mmvae import MMVae
+from mopoe_mimic_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -70,17 +71,23 @@ def create_train_state(cfg, device: Union[str, torch.device] = "cuda",
     """PyTorch's default init from ``seed`` (what the JAX package's
     ``torch_init=True`` emulates), or the given ``state_dict``; parameters
     in ``cfg.param_dtype`` (float32, or float64 for oracle runs), on
-    ``device``: the card unless the caller asks for the CPU."""
+    ``device``: the card unless the caller asks for the CPU. The span
+    ``state.init`` times it, ``state.model`` and ``state.optimizer`` its
+    parts."""
     device = torch.device(device)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = MMVae(cfg)
-    if state_dict is not None:
-        model.load_state_dict(state_dict)
-    model.to(device=device, dtype=getattr(torch, cfg.param_dtype)).train()
-    generator = torch.Generator(device=device).manual_seed(seed)
-    return TrainState(model, make_optimizer(cfg, model.parameters(), device), 0, generator,
-                      torch.zeros((), dtype=torch.float32, device=device))
+    with profiling.span("state.init"):
+        with profiling.span("state.model"):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                model = MMVae(cfg)
+            if state_dict is not None:
+                model.load_state_dict(state_dict)
+            model.to(device=device, dtype=getattr(torch, cfg.param_dtype)).train()
+        generator = torch.Generator(device=device).manual_seed(seed)
+        with profiling.span("state.optimizer"):
+            optimizer = make_optimizer(cfg, model.parameters(), device)
+        return TrainState(model, optimizer, 0, generator,
+                          torch.zeros((), dtype=torch.float32, device=device))
 
 
 def get_learning_rate(state: TrainState) -> float:

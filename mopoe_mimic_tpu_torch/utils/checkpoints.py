@@ -23,8 +23,9 @@ the next boundary, early stop, read or ``close``, as in the JAX package; a
 newer stage replaces an unflushed one, and a save of a later epoch writes
 the staged one first. Writes are synchronous: the JAX package's background
 writer and its device copy against buffer donation answer the TPU's
-host link, which the card does not have. ``save_seconds`` adds up the
-wall time of the writes.
+host link, which the card does not have. The span ``checkpoint.write``
+times a write and ``checkpoint.stage`` a staging copy; ``save_ns`` adds
+up the writes' spans.
 
 ``restore`` puts the checkpoint back into the given state in place: the
 parameters, buffers, optimizer state, learning rates and step count keep
@@ -40,12 +41,13 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._pytree import tree_map
+
+from mopoe_mimic_tpu_torch.utils import profiling
 
 STATE_FILE, METRICS_FILE = "state.pt", "metrics.json"
 
@@ -143,7 +145,7 @@ class CheckpointManager:
         for tmp in self.directory.glob("*.tmp"):  # a save that did not finish
             shutil.rmtree(tmp, ignore_errors=True)
         self.max_to_keep = max_to_keep
-        self.save_seconds = 0.0
+        self.save_ns = 0  # the checkpoint.write spans' nanoseconds
         self._staged: Optional[Tuple[int, Dict[str, Any], Optional[Dict]]] = None
 
     # -- disk ---------------------------------------------------------------
@@ -161,25 +163,27 @@ class CheckpointManager:
         on_disk = self._on_disk()
         if not force and on_disk and on_disk[-1] >= epoch:
             return False
-        t0 = time.perf_counter()
-        tmp, final = self.directory / f"{epoch}.tmp", self.directory / str(epoch)
-        shutil.rmtree(tmp, ignore_errors=True)
-        tmp.mkdir()
-        metrics = None if metrics is None else {k: float(v) for k, v in metrics.items()}
-        host = tree_map(lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t, payload)
-        torch.save({**host, "epoch": int(epoch), "metrics": metrics}, tmp / STATE_FILE)
-        with open(tmp / METRICS_FILE, "w") as f:
-            json.dump(metrics, f)
-        if final.exists():
-            shutil.rmtree(final)
-        os.replace(tmp, final)
-        infos = [(e, self._metrics(e)) for e in self._on_disk()]
-        keep = set(kept_epochs(infos, self.max_to_keep))
-        for e, _ in infos:
-            if e not in keep:
-                shutil.rmtree(self.directory / str(e), ignore_errors=True)
-        self.save_seconds += time.perf_counter() - t0
+        with profiling.span("checkpoint.write", checkpoint=epoch) as sp:
+            tmp, final = self.directory / f"{epoch}.tmp", self.directory / str(epoch)
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir()
+            metrics = None if metrics is None else {k: float(v) for k, v in metrics.items()}
+            host = tree_map(lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t,
+                            payload)
+            torch.save({**host, "epoch": int(epoch), "metrics": metrics}, tmp / STATE_FILE)
+            with open(tmp / METRICS_FILE, "w") as f:
+                json.dump(metrics, f)
+            if final.exists():
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            infos = [(e, self._metrics(e)) for e in self._on_disk()]
+            keep = set(kept_epochs(infos, self.max_to_keep))
+            for e, _ in infos:
+                if e not in keep:
+                    shutil.rmtree(self.directory / str(e), ignore_errors=True)
+        self.save_ns += sp.end_ns - sp.start_ns
         return True
+
 
     # -- public API ---------------------------------------------------------
 
@@ -197,7 +201,8 @@ class CheckpointManager:
     def stage(self, epoch: int, state, metrics: Optional[Dict[str, float]] = None) -> None:
         """Hold a copy of ``state`` on its device as the pending best, not
         written until ``flush_staged``."""
-        self._staged = (epoch, state_payload(state, copy=True), metrics)
+        with profiling.span("checkpoint.stage", checkpoint=epoch):
+            self._staged = (epoch, state_payload(state, copy=True), metrics)
 
     def flush_staged(self) -> None:
         if self._staged is None:

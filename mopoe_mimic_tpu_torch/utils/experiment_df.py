@@ -16,6 +16,7 @@ import math
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Tuple
 
+from mopoe_mimic_tpu_torch.utils import profiling
 from mopoe_mimic_tpu_torch.utils.meters import flatten_metrics
 
 KEY = "str_experiment"
@@ -71,14 +72,16 @@ class ExperimentDataframe:
         tmp.replace(self.path)
 
     def update(self, values: Mapping[str, Any]) -> None:
-        """Flatten metric values (names joined by ``_``) into this run's row."""
-        flat = flatten_metrics(dict(values), sep="_")
-        header, rows = self._load()
-        header += [k for k in flat if k not in header]
-        for r in rows:
-            if r[KEY] == self.run_name:
-                r.update({k: _cell(v) for k, v in flat.items()})
-        self._write(header, rows)
+        """Flatten metric values (names joined by ``_``) into this run's row
+        (the span ``loop.csv``: the file is read and written whole)."""
+        with profiling.span("loop.csv"):
+            flat = flatten_metrics(dict(values), sep="_")
+            header, rows = self._load()
+            header += [k for k in flat if k not in header]
+            for r in rows:
+                if r[KEY] == self.run_name:
+                    r.update({k: _cell(v) for k, v in flat.items()})
+            self._write(header, rows)
 
     def delete_row(self) -> None:
         """Drop this run's row (restart semantics, main_mimic.py:79-98)."""

@@ -20,7 +20,7 @@ from mopoe_mimic_tpu_torch.config import MopoeConfig
 from mopoe_mimic_tpu_torch.data.device_store import DeviceStore
 from mopoe_mimic_tpu_torch.data.synthetic import SyntheticMimic
 from mopoe_mimic_tpu_torch.ops import cuda_fusion, cuda_texthead
-from mopoe_mimic_tpu_torch.train import losses
+from mopoe_mimic_tpu_torch.train import losses, scan
 from mopoe_mimic_tpu_torch.train.scan import (
     epoch_index_matrix,
     make_eval_epoch,
@@ -28,6 +28,7 @@ from mopoe_mimic_tpu_torch.train.scan import (
 )
 from mopoe_mimic_tpu_torch.train.state import create_train_state, set_learning_rate
 from mopoe_mimic_tpu_torch.train.step import loss_terms, make_eval_step, make_train_step
+from mopoe_mimic_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -70,10 +71,14 @@ def launches():
     return {**cuda_fusion.LAUNCHES, **cuda_texthead.LAUNCHES}
 
 
+def captures():
+    return profiling.COUNTERS.get("scan.captures.train", 0)
+
+
 def test_graphed_train_epoch_is_the_eager_steps(device):
     """One row an epoch (each step's terms read); the learning rate set
-    between two epochs replays the same capture (no wrapper launches), and
-    dropping the gradients (``zero_grad``) makes the epoch capture again."""
+    between two epochs replays the same capture, and dropping the
+    gradients (``zero_grad``) makes the epoch capture again."""
     cfg = MopoeConfig(**KW)
     store = store_of(cfg, device)
     sd = create_train_state(cfg, device, seed=1).model.state_dict()
@@ -88,10 +93,10 @@ def test_graphed_train_epoch_is_the_eager_steps(device):
         if i == 5:
             for state in (graphed, eager):
                 state.optimizer.zero_grad()
-        before = launches()
+        before = captures()
         torch.cuda.manual_seed(10 + i)  # dropout's generator
         _, means = train_epoch(graphed, row[None])
-        captured = launches() != before
+        captured = captures() != before
         assert captured == (i in (0, 5)), (i, captured)
         torch.cuda.manual_seed(10 + i)
         assert_terms_close(means, train_step(eager, store.gather(row)))
@@ -115,6 +120,31 @@ def test_graphed_epoch_means_are_the_eager_means(device):
     for k, v in loss_terms(means).items():
         np.testing.assert_allclose(v, np.mean([t[k] for t in ref]), rtol=1e-5, err_msg=k)
     assert_params_close(graphed, eager)
+
+
+def test_launches_count_the_replays(device):
+    """After the capture, an epoch of N replays adds N launches of each of
+    word's K1 forward and backward and K2's four bfloat16 kernels; the
+    warm-up's eager steps count theirs, the capture none."""
+    cfg = MopoeConfig(**{**KW, "compute_dtype": "bfloat16"})
+    store = store_of(cfg, device)
+    state = create_train_state(cfg, device, seed=8)
+    train_epoch = make_train_epoch(cfg, store)
+    rows = epoch_index_matrix(store, 0, cfg.batch_size)
+    names = ["poe_subsets_f32", "poe_subsets_bwd_f32", "texthead_fwd", "texthead_bwd_dh",
+             "texthead_bwd_dw", "texthead_bwd_dw_finalize"]
+    before, captured, replays = launches(), captures(), profiling.COUNTERS.get(
+        "scan.replays.train", 0)
+    train_epoch(state, rows[:1])
+    first = {k: launches()[k] - before[k] for k in names}
+    assert captures() == captured + 1
+    assert first == dict.fromkeys(names, scan.WARMUP_STEPS + 1), first
+    before = launches()
+    train_epoch(state, rows)
+    added = {k: v - before[k] for k, v in launches().items() if v != before[k]}
+    assert added == dict.fromkeys(names, len(rows)), added
+    assert captures() == captured + 1
+    assert profiling.COUNTERS["scan.replays.train"] == replays + 1 + len(rows)
 
 
 def test_graphed_eval_epoch_is_the_per_step_eval(device):

@@ -289,21 +289,14 @@ def test_tensorboard_events_are_written_where_tensorboard_imports(tmp_path):
 
 
 def test_profiling_helpers(tmp_path):
-    from mopoe_mimic_tpu_torch.utils.profiling import (
-        StepTimer,
-        annotate,
-        device_memory_stats,
-        trace,
-    )
+    from mopoe_mimic_tpu_torch.utils.profiling import device_memory_stats, span, spans, trace
 
     with trace(str(tmp_path / "trace")):
-        with annotate("matmul"):
+        with span("matmul", rows=8) as sp:
             torch.ones(8, 8) @ torch.ones(8, 8)
     assert "matmul" in (tmp_path / "trace" / "trace.json").read_text()
-    timer = StepTimer(warmup=1)
-    for _ in range(3):
-        timer.tick(4)
-    assert timer.samples_per_sec > 0
+    assert spans()[-1] is sp and sp.attrs == {"rows": 8}
+    assert 0 < sp.start_ns < sp.end_ns and sp.seconds == (sp.end_ns - sp.start_ns) / 1e9
     assert device_memory_stats() == ({} if not torch.cuda.is_available() else
                                      device_memory_stats())
 
