@@ -73,6 +73,11 @@ any failure of which exits non-zero:
      runs bitwise equal;
      timed at K3_TIMED against the plain path (``batch_stats``,
      ``inv_std``, ``update_running_stats``) and ``torch.var_mean``;
+     the bf16 train-mode BatchNorm (``bn_fwd``, ``bn_bwd``; one pass or
+     two as ``bn_plan`` takes them) at ``BN_TIMED``: y within 1 bf16 ulp of
+     ATen's, dx within 2 of a float64 reference (ATen's own dx measured
+     against it), two runs bitwise equal, each kernel's device time beside
+     the bound (10 bytes an element) and ATen's (``bn_against_aten``);
   4. the serving slice at the flagship configuration's full width
      (configs/flagship.json: 128 px, word text len 128, vocab 3517,
      DIM 64, class_dim 64; random weights from seed 0, randomised BN
@@ -141,7 +146,9 @@ any failure of which exits non-zero:
      device time; then training B (``fused_pointwise`` too) the same way,
      each bf16 K3 kernel 32 times a replayed step and the float32 ones
      never; then training C (A with ``bn_compute_dtype="compute"``, the JAX
-     production diet) the same way as A, and C against A from the same
+     production diet) the same way as A, its every BatchNorm through
+     ``bn_fwd`` and ``bn_bwd`` (``bn_per_step``: 96 each a step, none in A
+     or B), and C against A from the same
      weights, rows and dropout draws: 13 steps of each, C's total loss
      within 5e-2 relative of A's at every step; both in turns (A C C A, 20
      steps a turn), and a 3-step profile of each with BatchNorm's forward
@@ -242,7 +249,7 @@ import torch
 from mopoe_mimic_tpu_torch import main as train_cli
 from mopoe_mimic_tpu_torch.config import MopoeConfig
 from mopoe_mimic_tpu_torch.models.mmvae import MMVae
-from mopoe_mimic_tpu_torch.ops import _build, cuda_fusion, cuda_pointwise, cuda_texthead
+from mopoe_mimic_tpu_torch.ops import _build, cuda_batchnorm, cuda_fusion, cuda_pointwise, cuda_texthead
 from mopoe_mimic_tpu_torch.ops import fusion as F
 from mopoe_mimic_tpu_torch.ops import pointwise as PW
 from mopoe_mimic_tpu_torch.ops import texthead as TH
@@ -1417,6 +1424,120 @@ def k3_stats_against_plain(device: torch.device, card_line: str) -> dict:
     return out
 
 
+# The bf16 train-mode BatchNorm's timed shapes (N, C, S): the largest maps,
+# the second, and two of the smallest, 2-D (4×4) and 1-D
+BN_TIMED = ((256, 64, 4096), (256, 128, 1024), (256, 320, 16), (256, 320, 1))
+BN_ENTRIES = tuple(cuda_batchnorm.LAUNCHES)  # bn_fwd, bn_bwd: one each a BatchNorm
+BN_EPS, BN_MOMENTUM = 1e-5, 0.1
+
+
+def bn_per_step(cfg) -> int:
+    """The BatchNorms of ``cfg``'s networks, each a train step's bn_fwd and
+    bn_bwd where they take bfloat16 (``bn_compute_dtype="compute"`` under
+    bf16): 96 for word, 108 for char."""
+    return sum(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+               for m in MMVae(cfg).modules())
+
+
+def bn_case(device, N: int, C: int, S: int, seed: int) -> tuple:
+    """x bf16 [N, C, S] with a shift and scale a channel, dy bf16 with a
+    bias, float32 weight, bias and running buffers."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shift = 2 * torch.randn(C, generator=g, device=device)
+    scale = 0.1 + 3 * torch.rand(C, generator=g, device=device)
+    x = (torch.randn(N, C, S, generator=g, device=device) * scale[:, None]
+         + shift[:, None]).bfloat16()
+    dy = (torch.randn(N, C, S, generator=g, device=device) + 0.3).bfloat16()
+    return (x, dy, 0.5 + torch.rand(C, generator=g, device=device),
+            torch.randn(C, generator=g, device=device), torch.randn(C, generator=g, device=device),
+            0.5 + torch.rand(C, generator=g, device=device))
+
+
+def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of |ref|, float64."""
+    r = ref.double().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(r)) - 7)
+
+
+def bn_against_aten(device: torch.device, card_line: str) -> dict:
+    """The BatchNorm kernels (``bn_fwd``, ``bn_bwd``) at ``BN_TIMED``: y
+    against ATen's bf16 BatchNorm (``native_batch_norm``, what
+    ``F.batch_norm`` runs for a bf16 input with float32 weights) within 1
+    bf16 ulp plus 1e-5 of the channel's terms; dx against a float64
+    reference within 2 ulps plus 1e-5 of its terms, and ATen's dx
+    (``native_batch_norm_backward``) measured against the same reference
+    (tests/test_torch_port_batchnorm.py's bounds, and why the backward is
+    held to float64); two runs bitwise equal. Then each kernel's device
+    time (profiler) beside the op's bound (10 bytes an element at
+    3.35 TB/s: 4 forward, 6 backward) and ATen's device time for the same
+    call (``library_ms``)."""
+    out = {}
+    for i, (N, C, S) in enumerate(BN_TIMED):
+        x, dy, w, b, rm, rv = bn_case(device, N, C, S, seed=150 + i)
+
+        def fwd():
+            return cuda_batchnorm.bn_fwd_cuda(x, w, b, rm.clone(), rv.clone(), BN_EPS,
+                                              BN_MOMENTUM)
+
+        y, mean, invstd = fwd()
+
+        def bwd():
+            return cuda_batchnorm.bn_bwd_cuda(x, dy, w, mean, invstd)
+
+        dx, dw, db = bwd()
+        again = (*fwd(), *bwd())
+        torch.cuda.synchronize()
+        shape = f"(N,C,S)={(N, C, S)}"
+        check(all(torch.equal(a, c) for a, c in zip((y, mean, invstd, dx, dw, db), again)),
+              f"BatchNorm {shape}: two runs on the same inputs differ")
+        y_a, mean_a, inv_a = torch.ops.aten.native_batch_norm(x, w, b, rm.clone(), rv.clone(),
+                                                              True, BN_MOMENTUM, BN_EPS)
+        dx_a = torch.ops.aten.native_batch_norm_backward(
+            dy, x, w, rm, rv, mean_a, inv_a, True, BN_EPS, [True, True, True])[0]
+        xd, dyd, n = x.double(), dy.double(), N * S
+        terms_y = (w.double().abs() * (xd - mean.double()[:, None]).abs().amax((0, 2))
+                   * invstd.double() + b.double().abs())
+        err_y = (y.double() - y_a.double()).abs() / (bf16_ulp(y_a) + 1e-5 * terms_y[:, None])
+        var64, mean64 = torch.var_mean(xd, dim=(0, 2), correction=0)
+        inv64, xc = 1 / (var64 + BN_EPS).sqrt(), xd - mean64[:, None]
+        proj, dmean = (dyd * xc).sum((0, 2)) / n * inv64 ** 2, dyd.sum((0, 2)) / n
+        dx64 = (dyd - xc * proj[:, None] - dmean[:, None]) * (inv64 * w.double())[:, None]
+        terms_dx = ((dyd.abs().amax((0, 2)) + xc.abs().amax((0, 2)) * proj.abs() + dmean.abs())
+                    * inv64 * w.double().abs())
+        bound_dx = 2 * bf16_ulp(dx64) + 1e-5 * terms_dx[:, None]
+        err_dx = (dx.double() - dx64).abs() / bound_dx
+        aten_dx = float(((dx_a.double() - dx64).abs() / bound_dx).max())
+        for what, err in (("y", err_y), ("dx", err_dx)):
+            check(float(err.max()) <= 1, f"BatchNorm {what} {shape}: |Δ| {float(err.max()):.3f} "
+                                         "of its bound")
+        fwd_us = device_us_by_kernel(fwd)
+        bwd_us = device_us_by_kernel(bwd)
+        aten_fwd = sum(device_us_by_kernel(lambda: torch.ops.aten.native_batch_norm(
+            x, w, b, rm.clone(), rv.clone(), True, BN_MOMENTUM, BN_EPS)).values())
+        aten_bwd = sum(device_us_by_kernel(lambda: torch.ops.aten.native_batch_norm_backward(
+            dy, x, w, rm, rv, mean_a, inv_a, True, BN_EPS, [True, True, True])).values())
+        plan = cuda_batchnorm.bn_plan(N, C, S, 8 if S % 8 == 0 else 1)
+        for entry, us, moved, aten in (("bn_fwd", fwd_us, 4 * x.numel(), aten_fwd),
+                                       ("bn_bwd", bwd_us, 6 * x.numel(), aten_bwd)):
+            kernels = {k: v for k, v in us.items() if "bn_" in k}
+            bound = least_time(moved, 0, torch.bfloat16)
+            total_ms = sum(kernels.values()) / 1e3
+            row = {"ms": total_ms, "kernels_ms": {k: v / 1e3 for k, v in kernels.items()},
+                   "library_ms": aten / 1e3, **bound, "plan": plan._asdict()}
+            out.setdefault(entry, {})[shape] = row
+            print(f"BatchNorm {entry} {shape} ({'one pass' if plan.fused else 'two passes'}): "
+                  + ", ".join(f"{k} {v:.2f} µs" for k, v in kernels.items())
+                  + f"; {total_ms * 1e3:.2f} µs of device time against the bound "
+                  f"{bound['bound_ms'] * 1e3:.2f} µs ({bound['bound_by']}) and ATen's "
+                  f"{aten:.2f} µs (profiler) [{card_line}]")
+        print(f"BatchNorm {shape}: |Δ| of y from ATen's {float(err_y.max()):.3f} of its bound, "
+              f"of dx from float64 {float(err_dx.max()):.3f} (ATen's dx {aten_dx:.3f}); two runs "
+              "bitwise equal")
+        out["bn_bwd"][shape]["aten_dx_of_bound"] = aten_dx
+        del x, dy, y, dx, y_a, dx_a, again
+    return out
+
+
 def k3_times(args, shape: str, first: bool) -> dict:
     """K3's kernels on ``args`` timed against their plain versions (CUDA
     events, median of 20 calls), pass A as one function (its partials
@@ -1641,11 +1762,13 @@ def endpoint_timings(sess: InferenceSession, card_line: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def launch_counts() -> dict:
-    return {**cuda_fusion.LAUNCHES, **cuda_texthead.LAUNCHES, **cuda_pointwise.LAUNCHES}
+    return {**cuda_fusion.LAUNCHES, **cuda_texthead.LAUNCHES, **cuda_pointwise.LAUNCHES,
+            **cuda_batchnorm.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (cuda_fusion.LAUNCHES, cuda_texthead.LAUNCHES, cuda_pointwise.LAUNCHES):
+    for counts in (cuda_fusion.LAUNCHES, cuda_texthead.LAUNCHES, cuda_pointwise.LAUNCHES,
+                   cuda_batchnorm.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -2135,7 +2258,7 @@ def epoch_training(cfg, store, device, card_line: str, per_step: dict) -> dict:
           f"ok in {first_s:.1f} s with the capture; wrapper launches {launches}; params moved "
           f"({len(moved)}, {len(params)}); epoch means {terms}")
 
-    expect = {REPLAYED[name]: n for name, n in per_step.items() if n}
+    expect = {REPLAYED[name]: n for name, n in per_step.items() if n and name in REPLAYED}
     replayed = replay_kernel_counts(lambda: train_epoch(state, rows[13:16]), 3, expect)
     check(replayed == expect, f"replay trace: kernels a step {replayed}, not {expect}")
     print(f"kernels a replayed step (trace of 3 replays): {replayed}")
@@ -2201,8 +2324,10 @@ def bn_device_ms(by_name: dict) -> dict:
         low = name.lower()
         if any(k in low for k in BN_NAMES):
             out["bwd_ms" if ("bw" in low or "backward" in low) else "fwd_ms"] += t
-            # the function's own name, with its library's namespace
-            out["kernels"].append(re.split(r"[<(]", name.removeprefix("void "))[0])
+            # the function's own name, with its library's namespace (the
+            # port's kernels' anonymous one left out)
+            short = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+            out["kernels"].append(re.split(r"[<(]", short)[0])
     out["kernels"] = sorted(set(out["kernels"]))
     return out
 
@@ -2661,8 +2786,9 @@ def char_against_word(device, card_line: str) -> dict:
         check(means["nan_in_latents"] == 0.0, f"{path} C graphed epoch: NaN in latents")
         per_step = {"poe_subsets_f32": 1, "poe_subsets_bwd_f32": 1,
                     **(K2_PER_STEP if path == "word" else {})}
-        for name in KERNELS:
-            want = (WARMUP_STEPS + 13) * per_step.get(name, 0)
+        for name in (*KERNELS, *BN_ENTRIES):
+            want = (WARMUP_STEPS + 13) * (bn_per_step(cfg) if name in BN_ENTRIES
+                                          else per_step.get(name, 0))
             check(launches[name] == want,
                   f"{path} C: {name} launched {launches[name]} times, not {want}")
         expect = {REPLAYED[name]: n for name, n in per_step.items()}
@@ -2832,13 +2958,15 @@ def drive_epoch(cfg, device, kernels=K12, rows: int = EPOCH_ROWS, parity_batch: 
           f" B, built in {report['build_s']:.1f} s")
     out = {"store": report, "parity": epoch_parity(cfg, store, device, n=parity_batch)}
     if kernels:
-        on_a = {**dict.fromkeys(K12, 1), **dict.fromkeys(K3, 0)}
+        on_a = {**dict.fromkeys(K12, 1), **dict.fromkeys(K3 + BN_ENTRIES, 0)}
         out["training_a"] = epoch_training(cfg, store, device, card_line, on_a)
         on_b = {**on_a, **dict.fromkeys(K3_BF16, K3_CALLS_PER_STEP)}
         out["training_b"] = epoch_training(cfg.replace(fused_pointwise=True), store, device,
                                            card_line, on_b)
-        out["training_c"] = epoch_training(cfg.replace(bn_compute_dtype="compute"), store,
-                                           device, card_line, on_a)
+        cfg_c = cfg.replace(bn_compute_dtype="compute")
+        out["training_c"] = epoch_training(cfg_c, store, device, card_line,
+                                           {**on_a, **dict.fromkeys(BN_ENTRIES,
+                                                                    bn_per_step(cfg_c))})
         out["c_against_a"] = training_c_against_a(cfg, store, device, card_line)
     return out
 
@@ -3342,6 +3470,7 @@ def main() -> int:
     results = {**k1_entries(device, card_line), **k2_against_plain(device, card_line),
                **k3_against_plain(device),
                **k3_stats_against_plain(device, card_line)}
+    print(json.dumps({"batchnorm": bn_against_aten(device, card_line)}))
     for name in TENSOR_CORE_KERNELS:  # K2's entries are named by the function, K3's by kernel
         results[name if name in results else name.removesuffix("_tc")]["sass"] = sass[name]
     for name, glob in K1_GLOBALS.items():

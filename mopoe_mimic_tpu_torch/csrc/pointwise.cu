@@ -76,6 +76,7 @@
 #include <cstdint>
 
 #include "launch.cuh"
+#include "welford.cuh"
 
 namespace {
 
@@ -1313,30 +1314,6 @@ pointwise_bwd_dx_tc(const TX* __restrict__ x, Norm p, const bf16* __restrict__ W
 // the running buffers. No atomics: two runs are bitwise equal.
 
 #define ST_THREADS 256
-
-// (n, mean, m2) ← (n, mean, m2) merged with (nb, mb, m2b), Chan's formula
-__device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2, float nb, float mb,
-                                           float m2b) {
-  if (nb == 0.0f) return;
-  if (n == 0.0f) {
-    n = nb, mean = mb, m2 = m2b;
-    return;
-  }
-  const float nn = n + nb, d = mb - mean, f = nb / nn;
-  mean = mean + d * f;
-  m2 = m2 + m2b + d * d * n * f;
-  n = nn;
-}
-
-// merge the states of the lanes l ^ off, off < width, in a fixed order
-__device__ __forceinline__ void chan_merge_lanes(float& n, float& mean, float& m2, int width) {
-  for (int off = 1; off < width; off <<= 1) {
-    const float nb = __shfl_xor_sync(0xffffffffu, n, off);
-    const float mb = __shfl_xor_sync(0xffffffffu, mean, off);
-    const float m2b = __shfl_xor_sync(0xffffffffu, m2, off);
-    chan_merge(n, mean, m2, nb, mb, m2b);
-  }
-}
 
 template <typename TX, int G>
 __global__ void __launch_bounds__(ST_THREADS)

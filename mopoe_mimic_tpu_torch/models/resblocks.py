@@ -22,9 +22,16 @@ gradient. It then differs from JAX in its rounding: PyTorch's BatchNorm
 normalizes in float32 and rounds once to bfloat16, where JAX rounds after
 each bfloat16 operation of the normalize and the affine. (On the card
 PyTorch runs a bfloat16 BatchNorm on ATen's own CUDA kernels, not on
-cuDNN's, which the float32 one uses.) A block's output
-``a · residual + b · h`` is then bfloat16, and so is the next block's
-input.
+cuDNN's, which the float32 one uses; in train mode the port runs its own,
+below.) A block's output ``a · residual + b · h`` is then bfloat16, and so
+is the next block's input.
+
+On the card a train-mode BatchNorm whose input is bfloat16 (``bn1``, ``bn2``
+and the shortcut's under ``"compute"``) runs the port's own kernels
+(``ops/batchnorm.batch_norm_train``, ``csrc/batchnorm.cu``) on the module's
+parameters and buffers, with ATen's arithmetic; every other BatchNorm (a
+CPU tensor, a float32 input, eval mode) is the module's call
+(``batch_norm``).
 
 ``fused_pointwise=True`` (``cfg.fused_pointwise``, resblocks.py:275-311 of
 the JAX package) computes ``bn1 → relu → conv1`` in train mode as one fused
@@ -43,6 +50,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mopoe_mimic_tpu_torch.ops.batchnorm import batch_norm_train
 from mopoe_mimic_tpu_torch.ops.pointwise import conv1x1_matrix, fused_bn_relu_pointwise
 
 A_SKIP, B_SKIP = 2.0, 0.3
@@ -74,6 +82,17 @@ def bn_dtype_of(cfg) -> torch.dtype:
         raise ValueError(f"bn_compute_dtype={cfg.bn_compute_dtype!r} (compute_dtype="
                          f"{cfg.compute_dtype!r}): not a float dtype of {sorted(_FLOAT_DTYPES)}")
     return _FLOAT_DTYPES[name]
+
+
+def takes_bn_kernels(x: torch.Tensor, bn: nn.Module) -> bool:
+    """Whether ``batch_norm`` runs ``bn`` on x through the port's kernels:
+    x bfloat16 on a CUDA device and ``bn`` in train mode."""
+    return bn.training and x.device.type == "cuda" and x.dtype == torch.bfloat16
+
+
+def batch_norm(bn: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``bn(x)``, through the port's kernels where ``takes_bn_kernels``."""
+    return batch_norm_train(x, bn) if takes_bn_kernels(x, bn) else bn(x)
 
 
 def compute_dtype_of(x: torch.Tensor) -> torch.dtype:
@@ -135,7 +154,7 @@ class _ResidualBlock(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """bn1 → relu → conv1: fused in train mode under ``fused_pointwise``."""
         if not (self.fused_pointwise and self.training):
-            return self.conv1(torch.relu(self.bn1(bn_input(x, self.bn_dtype))))
+            return self.conv1(torch.relu(batch_norm(self.bn1, bn_input(x, self.bn_dtype))))
         bn = self.bn1
         y, _, _ = fused_bn_relu_pointwise(
             x, bn.weight, bn.bias, conv1x1_matrix(self.conv1.weight, self.transpose),
@@ -146,10 +165,10 @@ class _ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.dropout1(self._head(x))
-        h = self.conv2(torch.relu(self.bn2(bn_input(h, self.bn_dtype))))
+        h = self.conv2(torch.relu(batch_norm(self.bn2, bn_input(h, self.bn_dtype))))
         h = self.dropout2(h)
         conv, bn = getattr(self, self._shortcut_name)
-        residual = bn(bn_input(conv(x), self.bn_dtype))
+        residual = batch_norm(bn, bn_input(conv(x), self.bn_dtype))
         return self.a * residual + self.b * h
 
 

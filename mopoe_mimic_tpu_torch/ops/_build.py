@@ -186,6 +186,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # part_mean, part_m2, mean, var, inv, running_mean, running_var, B, C, S,
         # b_per_chunk, eps, m, one_minus_m, unbias, stream
         "pointwise_stats_finalize": [ptr] * 7 + [i32] * 4 + [f32] * 4 + [ptr],
+        # x, weight, bias, running_mean, running_var, y, save_mean, save_invstd, part,
+        # N, C, S, vec, tpc, b_per_chunk, fused, eps, m, one_minus_m, unbias, stream
+        "bn_fwd": [ptr] * 9 + [i32] * 7 + [f32] * 4 + [ptr],
+        # x, dy, weight, save_mean, save_invstd, dx, dweight, dbias, part,
+        # N, C, S, vec, tpc, b_per_chunk, fused, stream
+        "bn_bwd": [ptr] * 9 + [i32] * 7 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
