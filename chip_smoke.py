@@ -1424,9 +1424,14 @@ def k3_stats_against_plain(device: torch.device, card_line: str) -> dict:
     return out
 
 
-# The bf16 train-mode BatchNorm's timed shapes (N, C, S): the largest maps,
-# the second, and two of the smallest, 2-D (4×4) and 1-D
-BN_TIMED = ((256, 64, 4096), (256, 128, 1024), (256, 320, 16), (256, 320, 1))
+# The bf16 train-mode BatchNorm's timed shapes (N, C, S): the resnet cells'
+# largest maps, the second, and two of the smallest, 2-D (4×4) and 1-D; then
+# DenseNet-121's at 256 px: norm0 (the stem, the largest map of any cell),
+# the narrowest concatenation, a transition, block 3's widest concatenation
+# and norm5 (one pass at the widest C)
+BN_TIMED = ((256, 64, 4096), (256, 128, 1024), (256, 320, 16), (256, 320, 1),
+            (256, 64, 16384), (256, 96, 4096), (256, 512, 1024), (256, 992, 256),
+            (256, 1024, 64))
 BN_ENTRIES = tuple(cuda_batchnorm.LAUNCHES)  # bn_fwd, bn_bwd: one each a BatchNorm
 BN_EPS, BN_MOMENTUM = 1e-5, 0.1
 

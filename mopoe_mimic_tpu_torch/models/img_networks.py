@@ -6,7 +6,11 @@ ConvNetworksImgMimic.py) at 64, 128 and 256 px. 2-D blocks have no conv
 bias; the shortcut convs do; the stem ``conv1`` has none; the output
 ``ConvTranspose2d(k3, s2, p1, output_padding 1)`` has one.
 ``fused_pointwise`` and ``bn_dtype`` go to every residual block
-(img_networks.py:45-207 of the JAX package).
+(img_networks.py:45-207 of the JAX package). The encoder's feature
+extractor is the residual stack or DenseNet-121 (``feature_extractor``,
+``cfg.feature_extractor_img``; ``models/densenet.py``), which takes
+``bn_dtype`` and ``fixed_extractor`` and no ``fused_pointwise``, as the
+JAX package's takes none.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from torch import nn
 
 from mopoe_mimic_tpu_torch.models.compressor import LinearFeatureCompressor
+from mopoe_mimic_tpu_torch.models.densenet import DenseNetFeatureExtractor
 from mopoe_mimic_tpu_torch.models.resblocks import (
     ResidualBlock2dConv,
     ResidualBlock2dTransposeConv,
@@ -89,14 +94,23 @@ class DataGeneratorImg(nn.Module):
 
 
 class EncoderImg(nn.Module):
-    """Image → (mu, logvar) of the content latent."""
+    """Image → (mu, logvar) of the content latent; ``feature_extractor``
+    ``"resnet"`` or ``"densenet"`` (img_networks.py:146-151 of the JAX
+    package; ``fixed_extractor`` is the DenseNet's alone)."""
 
     def __init__(self, dim: int, class_dim: int, img_size: int = 128,
                  image_channels: int = 1, bn_eps: float = 1e-5, fused_pointwise: bool = False,
-                 bn_dtype: Optional[torch.dtype] = None):
+                 bn_dtype: Optional[torch.dtype] = None, feature_extractor: str = "resnet",
+                 fixed_extractor: bool = False):
         super().__init__()
-        self.feature_extractor = FeatureExtractorImg(dim, img_size, image_channels, bn_eps,
-                                                     fused_pointwise, bn_dtype)
+        if feature_extractor == "densenet":
+            self.feature_extractor = DenseNetFeatureExtractor(5 * dim, fixed_extractor, bn_dtype)
+        elif feature_extractor == "resnet":
+            self.feature_extractor = FeatureExtractorImg(dim, img_size, image_channels, bn_eps,
+                                                         fused_pointwise, bn_dtype)
+        else:
+            raise NotImplementedError(f"feature_extractor_img={feature_extractor!r}: "
+                                      "'resnet' or 'densenet'")
         self.feature_compressor = LinearFeatureCompressor(5 * dim, class_dim)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

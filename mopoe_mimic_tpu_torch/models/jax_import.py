@@ -18,6 +18,11 @@ rule:
                      generator keeps its names (``resblock_{i}.0``, ``conv2``)
   * shortcuts        ``shortcut_conv`` / ``shortcut_bn`` →
                      ``downsample.{0,1}`` (encoders), ``upsample.{0,1}`` (decoders)
+  * DenseNet-121     ``feature_extractor/features/...`` (an X-ray encoder
+                     under ``feature_extractor_img="densenet"``) →
+                     torchvision's keys: ``denseblockB_layerL`` →
+                     ``denseblockB.denselayerL``, ``transitionT``, ``conv0``,
+                     ``norm0``, ``norm5`` as they are; ``proj`` a Linear
 
 The text head's layout depends on the configuration, as the JAX side's
 ``short_word`` switch does (torch_import.py:177, :227-238 of the JAX
@@ -90,7 +95,16 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg) -> Dict[str, torch.Te
             out[f"{base}.feature_generator.{name}"] = arr.T if rest[0] == "kernel" else arr
         elif group == "feature_extractor":
             mod = rest[0]
-            if mod == "embedding":
+            if mod == "features":  # the DenseNet trunk
+                key = f"{base}.feature_extractor.features.{_densenet_module(rest[1:-1])}"
+                if rest[-2].startswith("norm"):
+                    out[f"{key}.{_BN_PARAM[leaf]}"] = arr
+                else:  # a bias-free conv
+                    out[f"{key}.weight"] = _conv_w(arr)
+            elif mod == "proj":
+                name = {"kernel": "weight", "bias": "bias"}[leaf]
+                out[f"{base}.feature_extractor.proj.{name}"] = arr.T if leaf == "kernel" else arr
+            elif mod == "embedding":
                 out[f"{base}.feature_extractor.embedding.weight"] = arr
             elif mod == "conv1":
                 name = {"kernel": "weight", "bias": "bias"}[leaf]
@@ -117,9 +131,11 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg) -> Dict[str, torch.Te
             raise KeyError(f"unrecognized module group in {'/'.join(path)}")
 
     for path, arr in _flatten(variables.get("batch_stats", {})):
-        top, group, mod, sub, leaf = path[0], path[1], path[2], path[3], path[4]
+        top, group, mod, sub, leaf = path[0], path[1], path[2], path[3], path[-1]
         base = _TOP[top]
-        if group == "feature_extractor":
+        if mod == "features":  # the DenseNet trunk
+            key = f"{base}.feature_extractor.features.{_densenet_module(path[3:-1])}"
+        elif group == "feature_extractor":
             key = f"{base}.feature_extractor.{mod}.0.{_block_key(sub, 'downsample')}"
         else:
             key = f"{_generator_block(base, group, mod, char)}.{_block_key(sub, 'upsample')}"
@@ -129,6 +145,16 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg) -> Dict[str, torch.Te
     # a fresh C-order copy: flipped views can keep negative strides even when
     # numpy deems them contiguous (size-1 axes), which torch refuses
     return {k: torch.from_numpy(np.array(v, order="C", copy=True)) for k, v in out.items()}
+
+
+def _densenet_module(mods: Tuple[str, ...]) -> str:
+    """A JAX DenseNet module path under ``features`` → its torchvision key:
+    ``("denseblock2_layer5", "norm1")`` → ``denseblock2.denselayer5.norm1``."""
+    head, *rest = mods
+    if "_layer" in head:
+        block, layer = head.split("_layer")
+        head = f"{block}.denselayer{layer}"
+    return ".".join([head, *rest])
 
 
 def _generator_block(base: str, group: str, mod: str, char: bool) -> str:

@@ -29,6 +29,9 @@ of the mask; the subsets that enter the joint, a range of rows
 ReLU → 1×1 conv (K3) for train mode (mmvae.py:83, 102, 119, 134), and
 ``cfg.bn_compute_dtype`` gives every BatchNorm its dtype (mmvae.py:60:
 ``"compute"`` the compute dtype, else a dtype's name; ``models/resblocks.py``).
+``cfg.feature_extractor_img`` selects the X-ray encoders' feature
+extractor, the residual stack or DenseNet-121 (``models/densenet.py``,
+frozen under ``cfg.fixed_image_extractor``).
 ``remat`` other than ``"none"`` is refused: nothing is rematerialised.
 Factorized (style) representations are not ported yet.
 
@@ -67,8 +70,6 @@ class MMVae(nn.Module):
         super().__init__()
         if cfg.factorized_representation and any(cfg.style_dims.values()):
             raise NotImplementedError("factorized (style) representations are not ported yet")
-        if cfg.feature_extractor_img != "resnet":
-            raise NotImplementedError("only the resnet image feature extractor is ported")
         if cfg.remat != "none":
             raise NotImplementedError(f"remat={cfg.remat!r} is not ported")
         self.cfg = cfg
@@ -84,7 +85,8 @@ class MMVae(nn.Module):
                                   cfg.fused_pointwise, bn_dtype, cfg.text_encoding)
             else:
                 enc = EncoderImg(cfg.DIM_img, cfg.class_dim, cfg.img_size,
-                                 cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise, bn_dtype)
+                                 cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise, bn_dtype,
+                                 cfg.feature_extractor_img, cfg.fixed_image_extractor)
                 dec = DecoderImg(cfg.DIM_img, cfg.class_dim, cfg.img_size,
                                  cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise, bn_dtype)
             setattr(self, f"encoder_{suffix}", enc)
