@@ -7,10 +7,12 @@ the cell's own size, in one process: short runs of the cell through
   operands in the program's place (an upper reading); the same run also
   reads the program;
 * ``--fault-seeds``: the program with half of each batch left out and the
-  mean taken over the rest (an upper reading).
+  mean taken over the rest (an upper reading);
+* ``--unchanged-seeds``: the program with a step that leaves the state
+  unchanged (an upper reading of the losses; it reads 1 on ``change`` by
+  that number's definition).
 
-A step that leaves the state unchanged reads 1 on ``change`` by its
-definition and needs no run. One JSON line a reading, with ``correct`` as
+One JSON line a reading, with ``correct`` as
 the committed limits judge it, then the maxima and minima by kind.
 
     python3 bench_port/calibrate.py --workload train.word128 \\
@@ -34,7 +36,8 @@ import run  # noqa: E402
 
 NUMBERS = ("loss", "loss_2_3", "grad", "change", "grad_worst", "change_worst")
 KINDS = (("program", "seeds", ""), ("control", "control_seeds", "control"),
-         ("half_batch", "fault_seeds", "half_batch"))
+         ("half_batch", "fault_seeds", "half_batch"),
+         ("unchanged", "unchanged_seeds", "unchanged"))
 
 
 def seeds(text: str):
@@ -47,6 +50,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=seeds, default=[])
     ap.add_argument("--control-seeds", type=seeds, default=[])
     ap.add_argument("--fault-seeds", type=seeds, default=[])
+    ap.add_argument("--unchanged-seeds", type=seeds, default=[])
     ap.add_argument("--seconds", type=float, default=1.0, help="each run's window")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)

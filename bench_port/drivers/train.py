@@ -28,6 +28,14 @@ to disk after the window, in every run).
 
 After the window the program's state is freed and the reference repeats
 the first three steps on the same rows (``reference/training.py``).
+
+``attempted`` and ``failed`` are counted over the window's first
+``failure_horizon_epochs`` epochs (the workload file's), a fixed number of
+training steps: the loop does not restart on NaN, so a run that diverges
+trains NaN to the window's end, and a count over the whole window would
+charge a faster program the extra epochs it runs after the same
+divergence (``window_failures``). The whole window's ``window_epochs`` and
+``nonfinite_epochs`` are readings of their own.
 """
 
 from __future__ import annotations
@@ -56,6 +64,28 @@ from traffic.structured import StudySplit, studies
 CALLS = (1, 2)  # the first epoch's first calls: one row, then two (the first three steps)
 ADAM_BETA1 = 0.9
 FAULTS = ("", "unchanged", "half_batch", "control")
+
+
+def failure_horizon(cell: dict) -> int:
+    """The workload file's ``failure_horizon_epochs``: the window epochs
+    that ``attempted`` and ``failed`` count. No default."""
+    horizon = cell.get("failure_horizon_epochs")
+    if isinstance(horizon, bool) or not isinstance(horizon, int) or horizon < 1:
+        raise ValueError(f"failure_horizon_epochs {horizon!r}: the workload file gives a "
+                         "whole number of window epochs, 1 or more")
+    return horizon
+
+
+def nonfinite_epochs(train_losses) -> int:
+    return sum(1 for loss in train_losses if not np.isfinite(loss))
+
+
+def window_failures(train_losses, steps: int, horizon_epochs: int) -> tuple[int, int]:
+    """(attempted, failed) steps of the window's first ``horizon_epochs``
+    epochs, or of all of them where the window is shorter; an epoch whose
+    train loss is not finite fails its ``steps``."""
+    judged = train_losses[:horizon_epochs]
+    return len(judged) * steps, steps * nonfinite_epochs(judged)
 
 
 def program_config(cell: dict, config: dict, seed: int, root):
@@ -223,6 +253,7 @@ def run(ctx: dict) -> dict:
     fault = ctx.get("fault", "")
     if fault not in FAULTS:
         raise ValueError(f"fault {fault!r}: one of {FAULTS}")
+    horizon = failure_horizon(ctx["cell"])
     dev = torch.device(ctx["device"])
     exp, state, splits, weights_host = build(ctx)
     cfg = exp.cfg
@@ -264,8 +295,9 @@ def run(ctx: dict) -> dict:
         readings["card"] = card()
         clock = readings["card"]["sm_max_clock_mhz"]
         readings["sm_clock_hz"] = float(clock) * 1e6 if clock.replace(".", "").isdigit() else None
-    readings["attempted"] = len(window) * steps
-    readings["failed"] = steps * sum(1 for h in window if not np.isfinite(h["train_loss"]))
+    readings["nonfinite_epochs"] = nonfinite_epochs(readings["train_losses"])
+    readings["attempted"], readings["failed"] = window_failures(readings["train_losses"],
+                                                                steps, horizon)
 
     # the program's state freed; then the reference's first steps
     del result, state, exp

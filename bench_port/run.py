@@ -127,6 +127,16 @@ def execute(bench: dict, entry: dict, cell: dict, config: dict, workload: str, s
     return line, compared, readings
 
 
+def side_numbers(readings: dict, compared: dict) -> dict:
+    """What standard error carries before the compared numbers: the card,
+    the whole window's epochs and those whose train loss is not finite
+    (``failed`` counts only the first ``failure_horizon_epochs``), and the
+    check's numbers that are not compared."""
+    return {"card": readings.get("card"), "window_epochs": readings["window_epochs"],
+            "nonfinite_epochs": readings["nonfinite_epochs"],
+            **{k: v for k, v in readings["check"].items() if k not in compared}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -151,9 +161,7 @@ def main(argv=None) -> int:
     if bad:
         print(f"imported {bad}: the benchmark runs the port alone", file=sys.stderr)
         return 4
-    print(json.dumps({"card": readings.get("card"),
-                      **{k: v for k, v in readings["check"].items() if k not in compared}}),
-          file=sys.stderr)
+    print(json.dumps(side_numbers(readings, compared)), file=sys.stderr)
     for k, (v, lim) in compared.items():
         print(f"check {k} {v!r} limit {lim!r}", file=sys.stderr)
     sys.stderr.flush()
