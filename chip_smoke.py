@@ -74,7 +74,9 @@ any failure of which exits non-zero:
      timed at K3_TIMED against the plain path (``batch_stats``,
      ``inv_std``, ``update_running_stats``) and ``torch.var_mean``;
      the bf16 train-mode BatchNorm (``bn_fwd``, ``bn_bwd``; one pass or
-     two as ``bn_plan`` takes them) at ``BN_TIMED``: y within 1 bf16 ulp of
+     two as ``bn_plan`` takes them; and the same values channels-last on
+     ``bn_fwd_nhwc``, ``bn_bwd_nhwc`` as ``bn_plan_nhwc`` takes them) at
+     ``BN_TIMED``: y within 1 bf16 ulp of
      ATen's, dx within 2 of a float64 reference (ATen's own dx measured
      against it), two runs bitwise equal, each kernel's device time beside
      the bound (10 bytes an element) and ATen's (``bn_against_aten``);
@@ -148,7 +150,10 @@ any failure of which exits non-zero:
      never; then training C (A with ``bn_compute_dtype="compute"``, the JAX
      production diet) the same way as A, its every BatchNorm through
      ``bn_fwd`` and ``bn_bwd`` (``bn_per_step``: 96 each a step, none in A
-     or B), and C against A from the same
+     or B), the 60 of its channels-last image networks through
+     ``bn_fwd_nhwc`` and ``bn_bwd_nhwc``, one input copied a step
+     (``bn_copies``: K2's transposed gradient),
+     and C against A from the same
      weights, rows and dropout draws: 13 steps of each, C's total loss
      within 5e-2 relative of A's at every step; both in turns (A C C A, 20
      steps a turn), and a 3-step profile of each with BatchNorm's forward
@@ -1432,16 +1437,32 @@ def k3_stats_against_plain(device: torch.device, card_line: str) -> dict:
 BN_TIMED = ((256, 64, 4096), (256, 128, 1024), (256, 320, 16), (256, 320, 1),
             (256, 64, 16384), (256, 96, 4096), (256, 512, 1024), (256, 992, 256),
             (256, 1024, 64))
-BN_ENTRIES = tuple(cuda_batchnorm.LAUNCHES)  # bn_fwd, bn_bwd: one each a BatchNorm
+BN_ENTRIES = ("bn_fwd", "bn_bwd")  # one each a BatchNorm
+BN_NHWC = ("bn_fwd_nhwc", "bn_bwd_nhwc")  # of those, the channels-last networks' 2-D ones
 BN_EPS, BN_MOMENTUM = 1e-5, 0.1
 
 
-def bn_per_step(cfg) -> int:
+def bn_per_step(cfg, nhwc: bool = False) -> int:
     """The BatchNorms of ``cfg``'s networks, each a train step's bn_fwd and
     bn_bwd where they take bfloat16 (``bn_compute_dtype="compute"`` under
-    bf16): 96 for word, 108 for char."""
+    bf16): 96 for word, 108 for char. ``nhwc``: those of its channels-last
+    networks (the 2-D ones), each a step's bn_fwd_nhwc and bn_bwd_nhwc."""
+    model = MMVae(cfg)
+    nets = ([net for net in model.children() if getattr(net, "channels_last", False)] if nhwc
+            else [model])
     return sum(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
-               for m in MMVae(cfg).modules())
+               for net in nets for m in net.modules())
+
+
+def bn_launches_per_step(cfg) -> dict:
+    """{BatchNorm count: launches a train step} of ``cfg``: bn_fwd, bn_bwd,
+    bn_fwd_nhwc, bn_bwd_nhwc, and the inputs copied (bn_copies): one where
+    the word text head is fused, the gradient K2's backward writes [B, L, C]
+    for the word decoder's last shortcut BatchNorm (tests/
+    test_torch_port_batchnorm.py), none otherwise."""
+    return {**dict.fromkeys(BN_ENTRIES, bn_per_step(cfg)),
+            **dict.fromkeys(BN_NHWC, bn_per_step(cfg, nhwc=True)),
+            "bn_copies": int(cfg.fused_text_head)}
 
 
 def bn_case(device, N: int, C: int, S: int, seed: int) -> tuple:
@@ -1465,44 +1486,28 @@ def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
 
 
 def bn_against_aten(device: torch.device, card_line: str) -> dict:
-    """The BatchNorm kernels (``bn_fwd``, ``bn_bwd``) at ``BN_TIMED``: y
-    against ATen's bf16 BatchNorm (``native_batch_norm``, what
-    ``F.batch_norm`` runs for a bf16 input with float32 weights) within 1
-    bf16 ulp plus 1e-5 of the channel's terms; dx against a float64
-    reference within 2 ulps plus 1e-5 of its terms, and ATen's dx
-    (``native_batch_norm_backward``) measured against the same reference
-    (tests/test_torch_port_batchnorm.py's bounds, and why the backward is
-    held to float64); two runs bitwise equal. Then each kernel's device
-    time (profiler) beside the op's bound (10 bytes an element at
-    3.35 TB/s: 4 forward, 6 backward) and ATen's device time for the same
-    call (``library_ms``)."""
+    """The BatchNorm kernels at ``BN_TIMED``, each shape on both plans: x
+    [N, C, S] contiguous (``bn_fwd``, ``bn_bwd``) and the same values
+    channels-last, [N·S, C] (``bn_fwd_nhwc``, ``bn_bwd_nhwc``): y against
+    ATen's bf16 BatchNorm (``native_batch_norm``, what ``F.batch_norm``
+    runs for a bf16 input with float32 weights) within 1 bf16 ulp plus 1e-5
+    of the channel's terms; dx against a float64 reference within 2 ulps
+    plus 1e-5 of its terms, and ATen's dx (``native_batch_norm_backward``)
+    measured against the same reference (tests/test_torch_port_batchnorm.py's
+    bounds, and why the backward is held to float64); two runs bitwise
+    equal. Then each kernel's device time (profiler) beside the op's bound
+    (10 bytes an element at 3.35 TB/s: 4 forward, 6 backward) and ATen's
+    device time for the same call (``library_ms``). Keys ``bn_fwd``,
+    ``bn_bwd``, ``bn_fwd_nhwc``, ``bn_bwd_nhwc``."""
     out = {}
     for i, (N, C, S) in enumerate(BN_TIMED):
         x, dy, w, b, rm, rv = bn_case(device, N, C, S, seed=150 + i)
-
-        def fwd():
-            return cuda_batchnorm.bn_fwd_cuda(x, w, b, rm.clone(), rv.clone(), BN_EPS,
-                                              BN_MOMENTUM)
-
-        y, mean, invstd = fwd()
-
-        def bwd():
-            return cuda_batchnorm.bn_bwd_cuda(x, dy, w, mean, invstd)
-
-        dx, dw, db = bwd()
-        again = (*fwd(), *bwd())
-        torch.cuda.synchronize()
         shape = f"(N,C,S)={(N, C, S)}"
-        check(all(torch.equal(a, c) for a, c in zip((y, mean, invstd, dx, dw, db), again)),
-              f"BatchNorm {shape}: two runs on the same inputs differ")
         y_a, mean_a, inv_a = torch.ops.aten.native_batch_norm(x, w, b, rm.clone(), rv.clone(),
                                                               True, BN_MOMENTUM, BN_EPS)
         dx_a = torch.ops.aten.native_batch_norm_backward(
             dy, x, w, rm, rv, mean_a, inv_a, True, BN_EPS, [True, True, True])[0]
         xd, dyd, n = x.double(), dy.double(), N * S
-        terms_y = (w.double().abs() * (xd - mean.double()[:, None]).abs().amax((0, 2))
-                   * invstd.double() + b.double().abs())
-        err_y = (y.double() - y_a.double()).abs() / (bf16_ulp(y_a) + 1e-5 * terms_y[:, None])
         var64, mean64 = torch.var_mean(xd, dim=(0, 2), correction=0)
         inv64, xc = 1 / (var64 + BN_EPS).sqrt(), xd - mean64[:, None]
         proj, dmean = (dyd * xc).sum((0, 2)) / n * inv64 ** 2, dyd.sum((0, 2)) / n
@@ -1510,36 +1515,67 @@ def bn_against_aten(device: torch.device, card_line: str) -> dict:
         terms_dx = ((dyd.abs().amax((0, 2)) + xc.abs().amax((0, 2)) * proj.abs() + dmean.abs())
                     * inv64 * w.double().abs())
         bound_dx = 2 * bf16_ulp(dx64) + 1e-5 * terms_dx[:, None]
-        err_dx = (dx.double() - dx64).abs() / bound_dx
         aten_dx = float(((dx_a.double() - dx64).abs() / bound_dx).max())
-        for what, err in (("y", err_y), ("dx", err_dx)):
-            check(float(err.max()) <= 1, f"BatchNorm {what} {shape}: |Δ| {float(err.max()):.3f} "
-                                         "of its bound")
-        fwd_us = device_us_by_kernel(fwd)
-        bwd_us = device_us_by_kernel(bwd)
         aten_fwd = sum(device_us_by_kernel(lambda: torch.ops.aten.native_batch_norm(
             x, w, b, rm.clone(), rv.clone(), True, BN_MOMENTUM, BN_EPS)).values())
         aten_bwd = sum(device_us_by_kernel(lambda: torch.ops.aten.native_batch_norm_backward(
             dy, x, w, rm, rv, mean_a, inv_a, True, BN_EPS, [True, True, True])).values())
-        plan = cuda_batchnorm.bn_plan(N, C, S, 8 if S % 8 == 0 else 1)
-        for entry, us, moved, aten in (("bn_fwd", fwd_us, 4 * x.numel(), aten_fwd),
-                                       ("bn_bwd", bwd_us, 6 * x.numel(), aten_bwd)):
-            kernels = {k: v for k, v in us.items() if "bn_" in k}
-            bound = least_time(moved, 0, torch.bfloat16)
-            total_ms = sum(kernels.values()) / 1e3
-            row = {"ms": total_ms, "kernels_ms": {k: v / 1e3 for k, v in kernels.items()},
-                   "library_ms": aten / 1e3, **bound, "plan": plan._asdict()}
-            out.setdefault(entry, {})[shape] = row
-            print(f"BatchNorm {entry} {shape} ({'one pass' if plan.fused else 'two passes'}): "
-                  + ", ".join(f"{k} {v:.2f} µs" for k, v in kernels.items())
-                  + f"; {total_ms * 1e3:.2f} µs of device time against the bound "
-                  f"{bound['bound_ms'] * 1e3:.2f} µs ({bound['bound_by']}) and ATen's "
-                  f"{aten:.2f} µs (profiler) [{card_line}]")
-        print(f"BatchNorm {shape}: |Δ| of y from ATen's {float(err_y.max()):.3f} of its bound, "
-              f"of dx from float64 {float(err_dx.max()):.3f} (ATen's dx {aten_dx:.3f}); two runs "
-              "bitwise equal")
-        out["bn_bwd"][shape]["aten_dx_of_bound"] = aten_dx
-        del x, dy, y, dx, y_a, dx_a, again
+
+        def rows(t):  # [N, C, S] → the channels-last [N·S, C]
+            return t.transpose(1, 2).contiguous().view(N * S, C)
+
+        def back(t):  # and back
+            return t.view(N, S, C).transpose(1, 2)
+
+        layouts = (
+            ("", x, dy, cuda_batchnorm.bn_fwd_cuda, cuda_batchnorm.bn_bwd_cuda, lambda t: t,
+             cuda_batchnorm.bn_plan(N, C, S, 8 if S % 8 == 0 else 1)),
+            ("_nhwc", rows(x), rows(dy), cuda_batchnorm.bn_fwd_nhwc_cuda,
+             cuda_batchnorm.bn_bwd_nhwc_cuda, back,
+             cuda_batchnorm.bn_plan_nhwc(N * S, C, 8 if C % 8 == 0 else 1)))
+        for suffix, xl, dyl, fwd_cuda, bwd_cuda, to_ncs, plan in layouts:
+            def fwd():
+                return fwd_cuda(xl, w, b, rm.clone(), rv.clone(), BN_EPS, BN_MOMENTUM)
+
+            y, mean, invstd = fwd()
+
+            def bwd():
+                return bwd_cuda(xl, dyl, w, mean, invstd)
+
+            dx, dw, db = bwd()
+            again = (*fwd(), *bwd())
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, c) for a, c in zip((y, mean, invstd, dx, dw, db), again)),
+                  f"BatchNorm{suffix} {shape}: two runs on the same inputs differ")
+            y, dx = to_ncs(y), to_ncs(dx)
+            terms_y = (w.double().abs() * (xd - mean.double()[:, None]).abs().amax((0, 2))
+                       * invstd.double() + b.double().abs())
+            err_y = (y.double() - y_a.double()).abs() / (bf16_ulp(y_a) + 1e-5 * terms_y[:, None])
+            err_dx = (dx.double() - dx64).abs() / bound_dx
+            for what, err in (("y", err_y), ("dx", err_dx)):
+                check(float(err.max()) <= 1, f"BatchNorm{suffix} {what} {shape}: |Δ| "
+                                             f"{float(err.max()):.3f} of its bound")
+            fwd_us = device_us_by_kernel(fwd)
+            bwd_us = device_us_by_kernel(bwd)
+            for entry, us, moved, aten in ((f"bn_fwd{suffix}", fwd_us, 4 * x.numel(), aten_fwd),
+                                           (f"bn_bwd{suffix}", bwd_us, 6 * x.numel(), aten_bwd)):
+                kernels = {k: v for k, v in us.items() if "bn_" in k}
+                bound = least_time(moved, 0, torch.bfloat16)
+                total_ms = sum(kernels.values()) / 1e3
+                row = {"ms": total_ms, "kernels_ms": {k: v / 1e3 for k, v in kernels.items()},
+                       "library_ms": aten / 1e3, **bound, "plan": plan._asdict()}
+                out.setdefault(entry, {})[shape] = row
+                print(f"BatchNorm {entry} {shape} ({'one pass' if plan.fused else 'two passes'}):"
+                      " " + ", ".join(f"{k} {v:.2f} µs" for k, v in kernels.items())
+                      + f"; {total_ms * 1e3:.2f} µs of device time against the bound "
+                      f"{bound['bound_ms'] * 1e3:.2f} µs ({bound['bound_by']}) and ATen's "
+                      f"{aten:.2f} µs (profiler) [{card_line}]")
+            print(f"BatchNorm{suffix} {shape}: |Δ| of y from ATen's {float(err_y.max()):.3f} of "
+                  f"its bound, of dx from float64 {float(err_dx.max()):.3f} (ATen's dx "
+                  f"{aten_dx:.3f}); two runs bitwise equal")
+            out[f"bn_bwd{suffix}"][shape]["aten_dx_of_bound"] = aten_dx
+            del xl, dyl, y, dx, again
+        del x, dy, y_a, dx_a
     return out
 
 
@@ -2791,9 +2827,9 @@ def char_against_word(device, card_line: str) -> dict:
         check(means["nan_in_latents"] == 0.0, f"{path} C graphed epoch: NaN in latents")
         per_step = {"poe_subsets_f32": 1, "poe_subsets_bwd_f32": 1,
                     **(K2_PER_STEP if path == "word" else {})}
-        for name in (*KERNELS, *BN_ENTRIES):
-            want = (WARMUP_STEPS + 13) * (bn_per_step(cfg) if name in BN_ENTRIES
-                                          else per_step.get(name, 0))
+        bn = bn_launches_per_step(cfg)
+        for name in (*KERNELS, *bn):
+            want = (WARMUP_STEPS + 13) * bn.get(name, per_step.get(name, 0))
             check(launches[name] == want,
                   f"{path} C: {name} launched {launches[name]} times, not {want}")
         expect = {REPLAYED[name]: n for name, n in per_step.items()}
@@ -2963,15 +2999,15 @@ def drive_epoch(cfg, device, kernels=K12, rows: int = EPOCH_ROWS, parity_batch: 
           f" B, built in {report['build_s']:.1f} s")
     out = {"store": report, "parity": epoch_parity(cfg, store, device, n=parity_batch)}
     if kernels:
-        on_a = {**dict.fromkeys(K12, 1), **dict.fromkeys(K3 + BN_ENTRIES, 0)}
+        on_a = {**dict.fromkeys(K12, 1),
+                **dict.fromkeys(K3 + BN_ENTRIES + BN_NHWC + ("bn_copies",), 0)}
         out["training_a"] = epoch_training(cfg, store, device, card_line, on_a)
         on_b = {**on_a, **dict.fromkeys(K3_BF16, K3_CALLS_PER_STEP)}
         out["training_b"] = epoch_training(cfg.replace(fused_pointwise=True), store, device,
                                            card_line, on_b)
         cfg_c = cfg.replace(bn_compute_dtype="compute")
         out["training_c"] = epoch_training(cfg_c, store, device, card_line,
-                                           {**on_a, **dict.fromkeys(BN_ENTRIES,
-                                                                    bn_per_step(cfg_c))})
+                                           {**on_a, **bn_launches_per_step(cfg_c)})
         out["c_against_a"] = training_c_against_a(cfg, store, device, card_line)
     return out
 

@@ -35,7 +35,9 @@ frozen under ``cfg.fixed_image_extractor``).
 ``remat`` other than ``"none"`` is refused: nothing is rematerialised.
 Factorized (style) representations are not ported yet.
 
-Layouts are PyTorch's for images (NCHW) and the JAX package's for text:
+Layouts are PyTorch's for images (NCHW; in memory channels-last inside the
+2-D networks whose BatchNorms run on the port's bf16 kernels) and the JAX
+package's for text:
 word ids [B, L], or under ``text_encoding="char"`` a float one-hot
 [B, 1024, 71]; the text output is [B, L, classes]. The session converts
 images at its boundary.
@@ -74,6 +76,12 @@ class MMVae(nn.Module):
             raise NotImplementedError(f"remat={cfg.remat!r} is not ported")
         self.cfg = cfg
         bn_dtype = bn_dtype_of(cfg)
+        # The 2-D networks run channels-last where their BatchNorms are the
+        # port's bf16 kernels, which read that layout in place, so cuDNN's
+        # NHWC convolutions need no layout copies; K3 (fused_pointwise) reads
+        # [B, C, S] views, and float32 BatchNorms go to cuDNN's own kernels,
+        # so those networks stay NCHW.
+        channels_last = bn_dtype == torch.bfloat16 and not cfg.fused_pointwise
         for m in cfg.modality_names:
             suffix = MODULE_SUFFIX[m]
             if m == "text":
@@ -86,9 +94,11 @@ class MMVae(nn.Module):
             else:
                 enc = EncoderImg(cfg.DIM_img, cfg.class_dim, cfg.img_size,
                                  cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise, bn_dtype,
-                                 cfg.feature_extractor_img, cfg.fixed_image_extractor)
+                                 cfg.feature_extractor_img, cfg.fixed_image_extractor,
+                                 channels_last)
                 dec = DecoderImg(cfg.DIM_img, cfg.class_dim, cfg.img_size,
-                                 cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise, bn_dtype)
+                                 cfg.image_channels, cfg.bn_eps, cfg.fused_pointwise, bn_dtype,
+                                 channels_last)
             setattr(self, f"encoder_{suffix}", enc)
             setattr(self, f"decoder_{suffix}", dec)
 

@@ -192,6 +192,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # x, dy, weight, save_mean, save_invstd, dx, dweight, dbias, part,
         # N, C, S, vec, tpc, b_per_chunk, fused, stream
         "bn_bwd": [ptr] * 9 + [i32] * 7 + [ptr],
+        # x, weight, bias, running_mean, running_var, y, save_mean, save_invstd, part,
+        # R, C, vec, cols, rows_per_chunk, chunks, fused, eps, m, one_minus_m, unbias, stream
+        "bn_fwd_nhwc": [ptr] * 9 + [i32] * 7 + [f32] * 4 + [ptr],
+        # x, dy, weight, save_mean, save_invstd, dx, dweight, dbias, part,
+        # R, C, vec, cols, rows_per_chunk, chunks, fused, stream
+        "bn_bwd_nhwc": [ptr] * 9 + [i32] * 7 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

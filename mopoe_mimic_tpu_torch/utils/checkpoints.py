@@ -102,7 +102,7 @@ def load_state_payload(state, payload: Dict[str, Any]) -> None:
                 for k, v in src.items():
                     dst[k].copy_(v)
             else:
-                opt.state[p] = {k: v.to(p.device) for k, v in src.items()}
+                opt.state[p] = {k: _state_like(v, p) for k, v in src.items()}
         for group, saved_group in zip(opt.param_groups, saved["param_groups"]):
             for k, v in saved_group.items():
                 if k == "params":
@@ -115,6 +115,16 @@ def load_state_payload(state, payload: Dict[str, Any]) -> None:
     state.step = int(payload["step"])
     state.generator.set_state(payload["generator"])
     _set_default_rng_state(device, payload["default_generator"])
+
+
+def _state_like(v: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """An optimizer state tensor on p's device, in p's memory layout where
+    it has p's shape: the fused Adam reads a parameter and its states as
+    flat arrays, so a channels-last parameter with a state saved from a
+    contiguous one (or the reverse) would pair the wrong elements."""
+    if v.shape != p.shape:
+        return v.to(p.device)
+    return torch.empty_like(p, dtype=v.dtype).copy_(v)
 
 
 def _test_loss(metrics) -> float:

@@ -18,6 +18,10 @@ img_networks.py, text_networks.py, mmvae.py) on the CPU, at small width
   side patched as tests/test_torch_port_train.py patches it (two-pass BN,
   no dropout, z = mu): the total loss within 2e-2 relative at each step,
   every gradient finite, the running statistics float32.
+* The channels-last model (bfloat16 BatchNorms) against the NCHW one: the
+  same keys and values from the JAX package's variables through
+  ``jax_import`` and after a checkpoint's round trip between the layouts,
+  Adam's states in the loading parameters' layout.
 """
 
 import jax
@@ -263,3 +267,42 @@ def test_bf16_gradients_finite_and_statistics_float32(bf16_runs, case):
     for m in _bn_modules(state.model):
         assert m.running_mean.dtype == m.running_var.dtype == torch.float32
         assert torch.isfinite(m.running_var).all()
+
+
+def test_channels_last_model_takes_jax_weights_and_checkpoints_as_nchw(tmp_path):
+    """The channels-last model (bf16 BatchNorms, ``MMVae``'s rule) and the
+    NCHW one (float32 BatchNorms) hold the same keys and values: from the
+    JAX package's variables through ``jax_import``, and after a
+    checkpoint's round trip (a train step's payload written by the NCHW
+    state, loaded into the channels-last one), with Adam's states in the
+    loading parameters' layout (the fused Adam reads both as flat arrays)."""
+    from mopoe_mimic_tpu_torch.models.jax_import import state_dict_from_jax
+    from mopoe_mimic_tpu_torch.utils.checkpoints import load_state_payload, state_payload
+
+    kw = dict(KW, compute_dtype="bfloat16")
+    cfgs = {"cl": MopoeConfig(**kw, bn_compute_dtype="compute"), "nchw": MopoeConfig(**kw)}
+    sd = create_train_state(cfgs["nchw"], device="cpu", seed=7).model.state_dict()
+    variables = convert_mopoe_state_dict({k: v.numpy() for k, v in sd.items()}, JaxConfig(**kw))
+    from_jax = state_dict_from_jax(variables, cfgs["cl"])
+    states = {k: create_train_state(cfg, device="cpu", state_dict=from_jax)
+              for k, cfg in cfgs.items()}
+    for state in states.values():
+        got = state.model.state_dict()
+        assert got.keys() == sd.keys() and all(torch.equal(got[k], v) for k, v in sd.items())
+    convs = {k: [p for p in s.model.parameters() if p.dim() == 4] for k, s in states.items()}
+    assert all(p.is_contiguous(memory_format=torch.channels_last) for p in convs["cl"])
+    assert any(not p.is_contiguous() for p in convs["cl"])
+    assert all(p.is_contiguous() for p in convs["nchw"])
+
+    make_train_step(cfgs["nchw"])(states["nchw"], port_batch(numpy_batch(seed=3)))
+    torch.save(state_payload(states["nchw"]), tmp_path / "state.pt")
+    load_state_payload(states["cl"], torch.load(tmp_path / "state.pt", weights_only=False))
+    want = states["nchw"].model.state_dict()
+    got = states["cl"].model.state_dict()
+    assert got.keys() == want.keys() and all(torch.equal(got[k], v) for k, v in want.items())
+    assert all(p.is_contiguous(memory_format=torch.channels_last) for p in convs["cl"])
+    opt_cl, opt_nchw = states["cl"].optimizer, states["nchw"].optimizer
+    for p_cl, p_nchw in zip(states["cl"].model.parameters(), states["nchw"].model.parameters()):
+        for key in ("exp_avg", "exp_avg_sq"):
+            a, b = opt_cl.state[p_cl][key], opt_nchw.state[p_nchw][key]
+            assert torch.equal(a, b) and a.stride() == p_cl.stride(), key

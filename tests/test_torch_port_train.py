@@ -314,8 +314,8 @@ def test_chip_smoke_training_phase_rehearses_on_cpu():
 
     cfg = MopoeConfig(**KW, fused_text_head=True)
     run = chip_smoke.drive_training(cfg, "cpu", kernels=(), warmup=1, steps=2)
-    assert run["p50_ms"] > 0 and set(run["launches"]) == {*chip_smoke.KERNELS,
-                                                           *chip_smoke.BN_ENTRIES}
+    assert run["p50_ms"] > 0 and set(run["launches"]) == {
+        *chip_smoke.KERNELS, *chip_smoke.BN_ENTRIES, *chip_smoke.BN_NHWC, "bn_copies"}
     sd = create_train_state(cfg, device="cpu", seed=0).model.state_dict()
     batch = chip_smoke.training_batch(cfg, 4, seed=14, device="cpu")
     terms, grads = chip_smoke.one_step_grads(cfg, sd, "cpu", batch)
